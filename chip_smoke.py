@@ -9,15 +9,23 @@ PyTorch version on the card, then drives the port's main path through the
 entry points a user calls: scene 3 (Cornell box) at 512x512, 8 bounces,
 1 sample per dispatch, progressive accumulation with `backend="auto"`,
 which resolves to the mxu kernel.  It also renders the widest scene the
-mxu tables take (`dragon_grid`, <= 2047 triangles).
+mxu tables take (`dragon_grid`, <= 2047 triangles), and the trav path:
+`dragon_grid(56)` (62,720 triangles), which auto resolves to the trav
+kernel, at the same size.
 
-Phases (each prints lines starting with its tag):
+Phases (each prints lines starting with its tag, and its seconds):
   [card]    nvidia-smi name and power limit, torch and CUDA versions
-  [build]   nvcc build time and ptxas register report
-  [compare] kernel vs plain version at 64x64, 4 bounces, 1 and 2 frames:
-            hitrec agreement >= 0.999, max abs error of color / miss / rec
-            on the lanes whose hitrec agrees <= 1e-3, and the post-passed
-            images within `images_close` (tests/conftest.py criteria)
+  [build]   nvcc build time (both kernels, built in parallel) and ptxas
+            register report
+  [compare] mxu kernel vs plain version at 64x64, 4 bounces, 1 and 2
+            frames: hitrec agreement >= 0.999, max abs error of color /
+            miss / rec on the lanes whose hitrec agrees <= 1e-3, and the
+            post-passed images within `images_close` (tests/conftest.py)
+  [trav-compare] trav kernel vs plain version, same shapes, on scene 1
+            (spheres only), scene 3 forced to trav (textured), and
+            dragon_grid(11) and (56): >= 0.999 of lanes agree on color,
+            miss and rec within 1e-3, per-1024-slot-tile triangle-test
+            counts equal on >= 99% of tiles, images within `images_close`
   [main]    scene 3, 512x512, 8 bounces: 2 warm-up + 32 timed frames of
             render_progressive; ms/frame, cornell_grays_per_s, the kernel's
             and the post-pass's own time, and the launch count
@@ -25,7 +33,17 @@ Phases (each prints lines starting with its tag):
             idle share per frame, device launches, the costliest kernels
             and the PyTorch ops that launched them
   [wide]    dragon_grid at <= 2047 triangles, 512x512, 8 bounces, 8 frames
-  [plain]   the plain version's time for one 512x512 frame of scene 3
+  [plain]   the mxu plain version's time for one 512x512 frame of scene 3
+  [trav]    dragon_grid(56), 512x512, 8 bounces: 2 warm-up + 16 timed
+            frames of render_progressive with backend="auto" (resolves to
+            trav); ms/frame, grays_per_s, the host scene build, the
+            kernel's and the post-pass's own time, node visits and
+            triangle tests per ray-bounce, and the kernel's bound
+  [trav-profile] [profile] for 4 frames of the [trav] path
+  [trav-plain] the trav plain version's time for one frame at the [trav]
+            shape, and its output held against the kernel's on the same
+            inputs by the [trav-compare] criteria
+  [total]   the whole run's seconds
 
 The line before the last is the card's `nvidia-smi` name and power limit;
 the one before that is the per-kernel JSON record.  The last line is
@@ -39,6 +57,7 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -49,6 +68,18 @@ FP32_OPS_PER_S = 67e12
 # FP32 operations of one ray-triangle pair test: four 10-term rows
 # (9 multiplies + 9 adds each, csrc/mxu_trace.cu row_dot) and det's 2 adds
 PAIR_OPS = 4 * 18 + 2
+# FP32 operations of one trav node visit (slab test: 6 subtractions, 6
+# multiplies, 10 min/max, 3 compares) and one triangle test (edge cross
+# product 9, det 6, tdet 5, second cross product 9, u 5, v 6, w 2, the
+# ao subtractions 3, the min-chain gate 5, max + division 2, compares 2),
+# csrc/trav_trace.cu trav_nearest
+NODE_OPS = 25
+TRI_OPS = 54
+TRAV_GRID = 56               # dragon_grid(56): 62,720 triangles
+TRAV_COMPARE_GRIDS = (11, TRAV_GRID)
+TRAV_WARM, TRAV_TIMED = 2, 16
+TILE = 1024                  # rtm_tpu's ray tile: the stats granule
+TILE_AGREE_MIN = 0.99
 
 MAIN_RES = 512
 MAIN_BOUNCES = 8
@@ -113,6 +144,12 @@ class Smoke:
             self.failures.append(what)
             print(f"FAIL {what}", flush=True)
 
+    @contextmanager
+    def phase(self, tag: str):
+        t0 = time.perf_counter()
+        yield
+        print(f"[{tag}] phase_s={time.perf_counter() - t0:.2f}", flush=True)
+
 
 def mxu_bound(scene, cfg, hitrec, n: int):
     """(bound_ms, bound_by) of one timed mxu_trace call (no hitrec output):
@@ -135,6 +172,27 @@ def mxu_bound(scene, cfg, hitrec, n: int):
     live = cfg.max_frames * n + int((hr[:, :-1] != 0).sum())
     ops = live * scene.mxu_meta.n_tris * PAIR_OPS
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def trav_bound(scene, cfg, stats, n: int):
+    """(bound_ms, bound_by) of one timed trav_trace call (no stats
+    output): each input read once and each output written once at the HBM
+    rate, against the node visits and triangle tests this run's rays
+    needed (`stats`, from an untimed call on the same inputs) at the FP32
+    rate."""
+    from rtm_tpu_torch.ops.kernels.trav_kernel import trav_side_tables
+
+    ta = scene.trav_arrays
+    in_bytes = 64 * 4 + sum(t.numel() * t.element_size() for t in (
+        ta.node, ta.tri_feat, ta.tri_info, *trav_side_tables(scene))
+        if t is not None)
+    out_rows = 3 + 8 * cfg.max_frames + (
+        8 * cfg.max_frames * cfg.max_bounces if scene.any_textured else 0)
+    t_bytes = (in_bytes + out_rows * n * 4) / HBM_BYTES_PER_S * 1e3
+    ops = (int(stats[0].sum()) * NODE_OPS + int(stats[1].sum()) * TRI_OPS)
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
@@ -194,27 +252,164 @@ def phase_compare(sm: Smoke, scenes):
     return worst
 
 
-def drive(sm: Smoke, tag: str, host_scene, frames_warm: int,
-          frames_timed: int):
-    """Drive the main path through the user entry points; returns
-    (scene, cfg, image, ms/frame, launches)."""
+def trav_agreement(sm: Smoke, label: str, scene, cfg, k, p) -> float:
+    """Check one trav_trace output `k` against trav_trace_plain's `p` (both
+    with stats, same inputs): >= AGREE_MIN of lanes agree on color, miss
+    and rec within MAX_ABS_ERR, the per-tile sums of triangle tests are
+    equal on >= TILE_AGREE_MIN of tiles, and the post-passed images pass
+    images_close and are finite.  Returns the max abs error over the lanes
+    whose node-visit and triangle-test counts are equal (the lanes that
+    took the same traversal in both)."""
     import torch
-    from rtm_tpu_torch import (Camera, RenderConfig, build_tracer_scene,
-                               render_progressive)
+    from rtm_tpu_torch.ops.kernels.megakernel import (mega_postpass,
+                                                      slots_to_image)
+
+    n = cfg.width * cfg.height
+    tm = scene.trav_meta
+    diff = torch.zeros(n, device=k[0].device)
+    for a, b in zip(k[:3], p[:3]):
+        if a is not None:
+            diff = torch.maximum(diff, (a - b).abs().amax(dim=0))
+    lanes = float((diff <= MAX_ABS_ERR).float().mean())
+    same_path = (k[3] == p[3]).all(dim=0)
+    err = float(diff[same_path].max()) if same_path.any() else 0.0
+    tiles = (k[3][1].view(-1, TILE).sum(1) == p[3][1].view(-1, TILE).sum(1))
+    tile_agree = float(tiles.float().mean())
+    imgs = [slots_to_image(mega_postpass(o[0].T, o[1], o[2], scene, cfg, n),
+                           cfg.width, cfg.height).cpu() for o in (k, p)]
+    msg = images_close(imgs[0].numpy(), imgs[1].numpy())
+    finite = bool(torch.isfinite(imgs[0]).all())
+    print(f"{label} tris={scene.num_triangles} nodes={tm.n_nodes} "
+          f"leaves={tm.n_leaves} leaf_k={tm.leaf_k} {cfg.width}x"
+          f"{cfg.height} bounces={cfg.max_bounces} frames={cfg.max_frames} "
+          f"lanes_agree={lanes:.6f} "
+          f"same_path={float(same_path.float().mean()):.6f} "
+          f"tile_tests_equal={tile_agree:.4f} "
+          f"max_abs_err_same_path={err:.3e} images_close="
+          f"{'ok' if msg is None else msg}", flush=True)
+    what = f"{label} f{cfg.max_frames}"
+    sm.check(lanes >= AGREE_MIN, f"{what} lanes agree {lanes} < {AGREE_MIN}")
+    sm.check(tile_agree >= TILE_AGREE_MIN,
+             f"{what} tile test counts agree {tile_agree}")
+    sm.check(msg is None and finite, f"{what} images: {msg}, finite={finite}")
+    return err
+
+
+def phase_trav_compare(sm: Smoke, scenes):
+    """trav kernel vs plain version on the card (trav_agreement), on (name,
+    host Scene or built TracerScene) pairs.  Returns the max abs error."""
+    import torch
+    from rtm_tpu_torch import (Camera, RenderConfig, TracerScene,
+                               build_tracer_scene)
+    from rtm_tpu_torch.ops.kernels.megakernel import _pack_camera
+    from rtm_tpu_torch.ops.kernels.trav_kernel import (trav_side_tables,
+                                                       trav_trace,
+                                                       trav_trace_plain)
+
+    res = COMPARE_RES
+    n = res * res
+    worst = 0.0
+    for name, host in scenes:
+        scene = (host if isinstance(host, TracerScene)
+                 else build_tracer_scene(host))
+        sm.check(scene.trav_meta.supported,
+                 f"trav {name} beyond the trav tables")
+        tabs = trav_side_tables(scene)
+        for frames, fi in ((1, 1), (2, 3)):
+            cfg = RenderConfig(width=res, height=res,
+                               max_bounces=COMPARE_BOUNCES,
+                               max_frames=frames, draw_environment=True)
+            camf = _pack_camera(Camera().spec(res, res), scene.device)
+            k = trav_trace(scene, tabs, camf, fi, 0, n, cfg,
+                           with_stats=True)
+            p = trav_trace_plain(scene, tabs, camf, fi, 0, n, cfg,
+                                 with_stats=True)
+            torch.cuda.synchronize()
+            worst = max(worst, trav_agreement(
+                sm, f"[trav-compare] {name}", scene, cfg, k, p))
+    return worst
+
+
+def trav_kernel_and_postpass_ms(scene, cfg, reps: int):
+    """Device time of one trav_trace launch and of one post-pass at the
+    [trav] shape, plus an untimed launch with stats on the same inputs
+    (for the bound and the [trav-plain] comparison).  Returns (kernel ms,
+    post-pass ms, that launch's outputs, its camera row)."""
+    from rtm_tpu_torch import Camera
+    from rtm_tpu_torch.ops.kernels.megakernel import (_pack_camera,
+                                                      mega_postpass)
+    from rtm_tpu_torch.ops.kernels.trav_kernel import (trav_side_tables,
+                                                       trav_trace)
+
+    n = cfg.width * cfg.height
+    camf = _pack_camera(Camera().spec(cfg.width, cfg.height), scene.device)
+    tabs = trav_side_tables(scene)
+    k_ms = cuda_ms(lambda: trav_trace(scene, tabs, camf, 1, 0, n, cfg), reps)
+    out = trav_trace(scene, tabs, camf, 1, 0, n, cfg, with_stats=True)
+    p_ms = cuda_ms(lambda: mega_postpass(out[0].T, out[1], out[2], scene,
+                                         cfg, n), reps)
+    return k_ms, p_ms, out, camf
+
+
+def phase_trav_plain(sm: Smoke, scene, cfg, k_out, camf):
+    """The trav plain version at the [trav] shape: one frame (frame index
+    1, same camera row as `k_out`, the kernel's launch with stats), timed
+    by CUDA events, then held against `k_out` by trav_agreement.  Returns
+    (plain ms, max abs error)."""
+    import torch
+    from rtm_tpu_torch.ops.kernels.trav_kernel import (trav_side_tables,
+                                                       trav_trace_plain)
+
+    tabs = trav_side_tables(scene)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    p = trav_trace_plain(scene, tabs, camf, 1, 0, cfg.width * cfg.height,
+                         cfg, with_stats=True)
+    end.record()
+    torch.cuda.synchronize()
+    err = trav_agreement(sm, "[trav-plain]", scene, cfg, k_out, p)
+    return start.elapsed_time(end), err
+
+
+def build_scene(host_scene):
+    """build_tracer_scene on the card; returns (scene, host seconds)."""
+    import torch
+    from rtm_tpu_torch import build_tracer_scene
+
+    t0 = time.perf_counter()
+    scene = build_tracer_scene(host_scene)
+    torch.cuda.synchronize()
+    return scene, time.perf_counter() - t0
+
+
+def drive(sm: Smoke, tag: str, scene, build_s: float, frames_warm: int,
+          frames_timed: int, backend_expected: str = "mxu"):
+    """Drive a path through the user entry points (render_progressive with
+    backend="auto" on a scene from build_tracer_scene, built in build_s
+    host seconds); the launch counts are set to 0 just before the frames
+    and read just after.  Returns (cfg, image, ms/frame, launches of the
+    expected kernel)."""
+    import torch
+    from rtm_tpu_torch import Camera, RenderConfig, render_progressive
     from rtm_tpu_torch.ops.kernels.mxu_kernel import mxu_trace
+    from rtm_tpu_torch.ops.kernels.trav_kernel import trav_trace
     from rtm_tpu_torch.ops.trace_ref import auto_backend
 
+    kernels = {"mxu": mxu_trace, "trav": trav_trace}
     cfg = RenderConfig(width=MAIN_RES, height=MAIN_RES,
                        max_bounces=MAIN_BOUNCES, max_frames=1,
                        draw_environment=True, accumulate=True)
-    scene = build_tracer_scene(host_scene)
     cam = Camera().spec(cfg.width, cfg.height)
     backend = auto_backend(scene, scene.device.type)
     sm.check(scene.device.type == "cuda", f"{tag} scene not on the card")
-    sm.check(backend == "mxu", f"{tag} auto resolved to {backend}")
+    sm.check(backend == backend_expected,
+             f"{tag} auto resolved to {backend}, not {backend_expected}")
 
     torch.cuda.synchronize()
-    mxu_trace.launches = 0
+    for k in kernels.values():
+        k.launches = 0
     if frames_warm:
         render_progressive(scene, cam, cfg, frames_warm)
     start = torch.cuda.Event(enable_timing=True)
@@ -224,23 +419,29 @@ def drive(sm: Smoke, tag: str, host_scene, frames_warm: int,
     img = render_progressive(scene, cam, cfg, frames_timed)
     end.record()
     torch.cuda.synchronize()
-    launches = mxu_trace.launches
+    counts = {name: k.launches for name, k in kernels.items()}
+    launches = counts[backend_expected]
     ms = start.elapsed_time(end) / frames_timed
     dispatched = frames_warm + frames_timed
     grays = cfg.width * cfg.height * cfg.max_frames * cfg.max_bounces \
         / (ms * 1e-3) / 1e9
     finite = bool(torch.isfinite(img).all())
     mean = float(img.mean())
+    metric = ("cornell_grays_per_s" if backend_expected == "mxu"
+              else "grays_per_s")
     print(f"[{tag}] backend={backend} tris={scene.num_triangles} "
           f"{cfg.width}x{cfg.height} bounces={cfg.max_bounces} "
           f"frames={dispatched} ms/frame={ms:.4f} "
-          f"cornell_grays_per_s={grays:.6f} launches={launches} "
+          f"{metric}={grays:.6f} launches={counts} "
+          f"scene_build_s={build_s:.3f} "
           f"image_mean={mean:.6f} finite={finite}", flush=True)
     sm.check(launches == dispatched, f"{tag} launches {launches} != "
              f"frames dispatched {dispatched}")
+    sm.check(sum(counts.values()) == launches,
+             f"{tag} other kernels launched: {counts}")
     sm.check(finite and mean > 0.0, f"{tag} image finite={finite} "
              f"mean={mean}")
-    return scene, cfg, img, ms, launches
+    return cfg, img, ms, launches
 
 
 def kernel_and_postpass_ms(scene, cfg, reps: int):
@@ -263,8 +464,9 @@ def kernel_and_postpass_ms(scene, cfg, reps: int):
     return k_ms, p_ms, hitrec
 
 
-def phase_profile(scene, cfg, frames: int, frame_ms: float):
-    """Where a main-path frame's time goes: torch.profiler over `frames`
+def phase_profile(scene, cfg, frames: int, frame_ms: float,
+                  tag: str = "profile"):
+    """Where a path's frame time goes: torch.profiler over `frames`
     frames of render_progressive.  Prints the wall time per frame (with the
     profiler on), the device's busy time per frame (union of the device
     events' intervals), the idle share against the profiled wall time and
@@ -290,7 +492,7 @@ def phase_profile(scene, cfg, frames: int, frame_ms: float):
                   for e in prof.events() if e.device_type == DeviceType.CUDA),
                  key=lambda x: x[0])
     if not dev:
-        print("[profile] device time not measured: the profiler saw no "
+        print(f"[{tag}] device time not measured: the profiler saw no "
               "device events", flush=True)
         return
     busy_us, cur_s, cur_e = 0.0, dev[0][0], dev[0][1]
@@ -306,14 +508,14 @@ def phase_profile(scene, cfg, frames: int, frame_ms: float):
         acc[0] += e - s
         acc[1] += 1
     busy_ms = busy_us / 1e3 / frames
-    print(f"[profile] frames={frames} wall_ms/frame={wall_ms / frames:.4f} "
+    print(f"[{tag}] frames={frames} wall_ms/frame={wall_ms / frames:.4f} "
           f"device_busy_ms/frame={busy_ms:.4f} idle_share="
           f"{1.0 - busy_ms / (wall_ms / frames):.4f} "
           f"idle_share_unprofiled={1.0 - busy_ms / frame_ms:.4f} "
           f"device_launches/frame={len(dev) / frames:.1f}", flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (us, cnt) in top:
-        print(f"[profile]   {us / 1e3 / frames:9.4f} ms/frame  "
+        print(f"[{tag}]   {us / 1e3 / frames:9.4f} ms/frame  "
               f"{cnt / frames:6.1f}/frame  {name[:90]}", flush=True)
 
     def self_dev_us(e):
@@ -323,7 +525,7 @@ def phase_profile(scene, cfg, frames: int, frame_ms: float):
     ops = [e for e in prof.key_averages(group_by_input_shape=True)
            if e.device_type == DeviceType.CPU and self_dev_us(e) > 0.0]
     for e in sorted(ops, key=lambda e: -self_dev_us(e))[:8]:
-        print(f"[profile]   op {self_dev_us(e) / 1e3 / frames:9.4f} ms/frame"
+        print(f"[{tag}]   op {self_dev_us(e) / 1e3 / frames:9.4f} ms/frame"
               f"  {e.count / frames:6.1f}/frame  {e.key}  "
               f"{str(e.input_shapes)[:100]}", flush=True)
 
@@ -356,6 +558,7 @@ def main() -> int:
                                                       mxu_trace_plain,
                                                       side_tables)
 
+    run_t0 = time.perf_counter()
     sm = Smoke()
     card = nvidia_smi_line()
     print(f"[card] {card}", flush=True)
@@ -363,61 +566,116 @@ def main() -> int:
           f"device={torch.cuda.get_device_name(0)} "
           f"count={torch.cuda.device_count()}", flush=True)
 
-    t0 = time.perf_counter()
-    reports = build.build_kernels(build.KERNELS)
-    print(f"[build] {', '.join(build.KERNELS)} built in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for name, text in reports.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"[build] {name}: {line.strip()}", flush=True)
+    with sm.phase("build"):
+        t0 = time.perf_counter()
+        reports = build.build_kernels(build.KERNELS)
+        print(f"[build] {', '.join(build.KERNELS)} built in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        for name, text in reports.items():
+            for line in text.splitlines():
+                if "registers" in line or "spill" in line or "error" in line:
+                    print(f"[build] {name}: {line.strip()}", flush=True)
 
     # widest dragon grid the mxu tables take (k=10 with the stand-in mesh)
     per_dragon = dragon_grid(1).meshes[0].num_triangles
     grid_k = max(1, int((MAX_TRIS / per_dragon) ** 0.5))
 
-    err = phase_compare(sm, [("scene1", load_scene(1)),
-                             ("scene2", load_scene(2)),
-                             ("scene3", load_scene(3)),
-                             (f"dragon_grid{grid_k}", dragon_grid(grid_k))])
+    with sm.phase("compare"):
+        err = phase_compare(sm, [("scene1", load_scene(1)),
+                                 ("scene2", load_scene(2)),
+                                 ("scene3", load_scene(3)),
+                                 (f"dragon_grid{grid_k}",
+                                  dragon_grid(grid_k))])
+    with sm.phase("trav-build"):
+        # the [trav] scene, built once for [trav-compare] and [trav]
+        tscene, tbuild_s = build_scene(dragon_grid(TRAV_GRID))
+        print(f"[trav-build] dragon_grid{TRAV_GRID} "
+              f"tris={tscene.num_triangles} scene_build_s={tbuild_s:.3f}",
+              flush=True)
+    with sm.phase("trav-compare"):
+        trav_err = phase_trav_compare(
+            sm, [("scene1", load_scene(1)), ("scene3", load_scene(3))]
+            + [(f"dragon_grid{k}",
+                tscene if k == TRAV_GRID else dragon_grid(k))
+               for k in TRAV_COMPARE_GRIDS])
 
-    scene, cfg, img, frame_ms, launches = drive(sm, "main", load_scene(3),
-                                                2, 32)
-    k_ms, p_ms, hitrec = kernel_and_postpass_ms(scene, cfg, 20)
-    n = cfg.width * cfg.height
-    bound_ms, bound_by = mxu_bound(scene, cfg, hitrec, n)
-    print(f"[main] kernel_ms={k_ms:.4f} postpass_ms={p_ms:.4f} "
-          f"bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
-    out_png = build.BUILD_DIR / "chip_smoke_scene3.png"
-    out_png.parent.mkdir(parents=True, exist_ok=True)
-    save_png(out_png, img.cpu().numpy()[::-1])
-    print(f"[main] image written to {out_png.relative_to(ROOT)}", flush=True)
-    phase_profile(scene, cfg, 4, frame_ms)
+    with sm.phase("main"):
+        scene, build_s = build_scene(load_scene(3))
+        cfg, img, frame_ms, launches = drive(sm, "main", scene, build_s,
+                                             2, 32)
+        k_ms, p_ms, hitrec = kernel_and_postpass_ms(scene, cfg, 20)
+        n = cfg.width * cfg.height
+        bound_ms, bound_by = mxu_bound(scene, cfg, hitrec, n)
+        print(f"[main] kernel_ms={k_ms:.4f} postpass_ms={p_ms:.4f} "
+              f"bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
+        out_png = build.BUILD_DIR / "chip_smoke_scene3.png"
+        out_png.parent.mkdir(parents=True, exist_ok=True)
+        save_png(out_png, img.cpu().numpy()[::-1])
+        print(f"[main] image written to {out_png.relative_to(ROOT)}",
+              flush=True)
+    with sm.phase("profile"):
+        phase_profile(scene, cfg, 4, frame_ms)
 
-    wide, wcfg, _, wide_ms, _ = drive(sm, "wide", dragon_grid(grid_k), 0, 8)
-    wk_ms, wp_ms, whr = kernel_and_postpass_ms(wide, wcfg, 5)
-    wb_ms, wb_by = mxu_bound(wide, wcfg, whr, n)
-    print(f"[wide] kernel_ms={wk_ms:.4f} postpass_ms={wp_ms:.4f} "
-          f"bound_ms={wb_ms:.5f} ({wb_by})", flush=True)
+    with sm.phase("wide"):
+        wide, wbuild_s = build_scene(dragon_grid(grid_k))
+        wcfg, _, wide_ms, _ = drive(sm, "wide", wide, wbuild_s, 0, 8)
+        wk_ms, wp_ms, whr = kernel_and_postpass_ms(wide, wcfg, 5)
+        wb_ms, wb_by = mxu_bound(wide, wcfg, whr, n)
+        print(f"[wide] kernel_ms={wk_ms:.4f} postpass_ms={wp_ms:.4f} "
+              f"bound_ms={wb_ms:.5f} ({wb_by})", flush=True)
+        del wide
 
-    # the plain version at the main path's shape, and its image against
-    # the kernel's (frame 1, same rays)
-    camf = _pack_camera(Camera().spec(cfg.width, cfg.height), scene.device)
-    tabs = side_tables(scene)
-    plain_ms = cuda_ms(
-        lambda: mxu_trace_plain(scene, tabs, camf, 1, 0, n, cfg), 3)
-    p_out = mxu_trace_plain(scene, tabs, camf, 1, 0, n, cfg)
-    k_img = render_dispatch(scene, Camera().spec(cfg.width, cfg.height), 1,
-                            cfg)
-    p_img = slots_to_image(mega_postpass(p_out[0].T, p_out[1], p_out[2],
-                                         scene, cfg, n), cfg.width,
-                           cfg.height)
-    msg = images_close(k_img.cpu().numpy(), p_img.cpu().numpy())
-    print(f"[plain] scene3 {cfg.width}x{cfg.height} {cfg.max_bounces} "
-          f"bounces: plain_ms={plain_ms:.3f} "
-          f"kernel_ms={k_ms:.4f} frame-1 images_close="
-          f"{'ok' if msg is None else msg}", flush=True)
-    sm.check(msg is None, f"main-path frame vs plain version: {msg}")
+    with sm.phase("plain"):
+        # the plain version at the main path's shape, and its image
+        # against the kernel's (frame 1, same rays)
+        camf = _pack_camera(Camera().spec(cfg.width, cfg.height),
+                            scene.device)
+        tabs = side_tables(scene)
+        plain_ms = cuda_ms(
+            lambda: mxu_trace_plain(scene, tabs, camf, 1, 0, n, cfg), 3)
+        p_out = mxu_trace_plain(scene, tabs, camf, 1, 0, n, cfg)
+        k_img = render_dispatch(scene, Camera().spec(cfg.width, cfg.height),
+                                1, cfg)
+        p_img = slots_to_image(mega_postpass(p_out[0].T, p_out[1], p_out[2],
+                                             scene, cfg, n), cfg.width,
+                               cfg.height)
+        msg = images_close(k_img.cpu().numpy(), p_img.cpu().numpy())
+        print(f"[plain] scene3 {cfg.width}x{cfg.height} {cfg.max_bounces} "
+              f"bounces: plain_ms={plain_ms:.3f} "
+              f"kernel_ms={k_ms:.4f} frame-1 images_close="
+              f"{'ok' if msg is None else msg}", flush=True)
+        sm.check(msg is None, f"main-path frame vs plain version: {msg}")
+
+    with sm.phase("trav"):
+        tcfg, timg, trav_ms, trav_launches = drive(
+            sm, "trav", tscene, tbuild_s, TRAV_WARM, TRAV_TIMED,
+            backend_expected="trav")
+        tk_ms, tp_ms, tout, tcamf = trav_kernel_and_postpass_ms(
+            tscene, tcfg, 5)
+        tstats = tout[3]
+        tb_ms, tb_by = trav_bound(tscene, tcfg, tstats, n)
+        ray_bounces = n * tcfg.max_frames * tcfg.max_bounces
+        tm = tscene.trav_meta
+        print(f"[trav] nodes={tm.n_nodes} leaves={tm.n_leaves} "
+              f"leaf_k={tm.leaf_k} kernel_ms={tk_ms:.4f} "
+              f"postpass_ms={tp_ms:.4f} bound_ms={tb_ms:.5f} ({tb_by}) "
+              f"node_visits/ray-bounce="
+              f"{int(tstats[0].sum()) / ray_bounces:.4f} "
+              f"tri_tests/ray-bounce={int(tstats[1].sum()) / ray_bounces:.4f}"
+              f" (per dispatched ray-bounce, W*H*spp*bounces)", flush=True)
+        out_png = build.BUILD_DIR / f"chip_smoke_dragon_grid{TRAV_GRID}.png"
+        save_png(out_png, timg.cpu().numpy()[::-1])
+        print(f"[trav] image written to {out_png.relative_to(ROOT)}",
+              flush=True)
+    with sm.phase("trav-profile"):
+        phase_profile(tscene, tcfg, 4, trav_ms, tag="trav-profile")
+    with sm.phase("trav-plain"):
+        trav_plain_ms, plain_err = phase_trav_plain(sm, tscene, tcfg, tout,
+                                                    tcamf)
+        trav_err = max(trav_err, plain_err)
+        print(f"[trav-plain] dragon_grid{TRAV_GRID} {tcfg.width}x"
+              f"{tcfg.height} {tcfg.max_bounces} bounces: plain_ms="
+              f"{trav_plain_ms:.3f} kernel_ms={tk_ms:.4f}", flush=True)
 
     record = {"kernels": [{
         "name": "mxu_trace",
@@ -431,7 +689,20 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "trav_trace",
+        "route": "cuda",
+        "source": "rtm_tpu_torch/csrc/trav_trace.cu",
+        "replaces": "rtm_tpu/ops/pallas/trav_kernel.py:429",
+        "launches": trav_launches,
+        "max_abs_err": trav_err,
+        "ms": tk_ms,
+        "plain_ms": trav_plain_ms,
+        "bound_ms": tb_ms,
+        "bound_by": tb_by,
+        "library_ms": None,
     }]}
+    print(f"[total] run_s={time.perf_counter() - run_t0:.2f}", flush=True)
     print(json.dumps(record), flush=True)
     if sm.failures:
         print(f"chip_smoke: {len(sm.failures)} check(s) failed: "

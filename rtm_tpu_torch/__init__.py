@@ -7,7 +7,8 @@ rtm_tpu's Pallas TPU kernels becomes a hand-written CUDA kernel under
 `csrc/` with a plain PyTorch version beside it.  It never imports JAX or
 rtm_tpu.  Entry points run on the card unless the caller asks for the CPU
 (`build_tracer_scene(..., device="cpu")`), where the kernels' plain
-versions run.  Ported so far: the mxu forward path (see ROADMAP.md).
+versions run.  Ported so far: the mxu forward path and the trav path for
+scenes beyond the mxu tables (see ROADMAP.md).
 """
 
 from .config import RenderConfig

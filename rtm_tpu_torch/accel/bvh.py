@@ -20,16 +20,17 @@ Parity with the reference builder (RayTracing/src/BVH.{h,cpp}):
   * Stats{buildTime, triCnt, nodeCnt, leafCnt, leafDepth, leafTris, SAH}
                                                            (BVH.cpp:240-258)
 
-This is the NumPy/Python builder only; a native builder with identical
-output is a later step of the port.
+This is the NumPy builder only, with the per-axis bucket sweep and the
+partition vectorized (same splits, same triangle order as rtm_tpu's NumPy
+builder); a native builder is a later step of the port.
 """
 from __future__ import annotations
 
+import time
+from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
-
-import time
 
 from ..models.mesh import Mesh
 
@@ -44,6 +45,22 @@ def _area(vmin, vmax) -> np.float32:
         return np.float32(0.0)
     size = (vmin - vmax).astype(np.float32)
     return np.float32(size[0] * size[1] + size[1] * size[2] + size[0] * size[2])
+
+
+def _areas(vmin, vmax) -> np.ndarray:
+    """_area over the leading axes of (..., 3) boxes."""
+    with np.errstate(over="ignore", invalid="ignore"):
+        size = vmin - vmax
+        a = (size[..., 0] * size[..., 1] + size[..., 1] * size[..., 2]
+             + size[..., 0] * size[..., 2])
+    return np.where((vmin > vmax).any(axis=-1), np.float32(0.0), a)
+
+
+def _bounds(mins, maxs):
+    """(min, max) over rows of (n, 3) triangle boxes; (FMAX, -FMAX) empty."""
+    if len(mins) == 0:
+        return np.full(3, FMAX, np.float32), np.full(3, -FMAX, np.float32)
+    return mins.min(axis=0), maxs.max(axis=0)
 
 
 @dataclass
@@ -125,65 +142,52 @@ def _build_python(mesh: Mesh) -> BVH:
     hier_region: list = [np.zeros(2, np.uint32)]
     stats = BvhStats(tri_cnt=t_count)
 
-    def split_axis(axis: int, lo: int, hi: int, blo: np.float32, bhi: np.float32):
-        """BVH.cpp:181-225. Returns (cost, position)."""
-        interval = np.float32(NR_SUBPLANES) / np.float32(bhi - blo)
-        c = centers[indices[lo:hi], axis]
-        bucket = np.minimum(NR_SUBPLANES - 1,
-                            ((c - blo) * interval).astype(np.uint32))
-        b_cnt = np.zeros(NR_SUBPLANES, np.uint32)
-        b_min = np.full((NR_SUBPLANES, 3), FMAX, np.float32)
-        b_max = np.full((NR_SUBPLANES, 3), -FMAX, np.float32)
-        sel_min = node_min[indices[lo:hi]]
-        sel_max = node_max[indices[lo:hi]]
-        for bi in range(NR_SUBPLANES):
-            m = bucket == bi
-            b_cnt[bi] = m.sum()
-            if b_cnt[bi]:
-                b_min[bi] = sel_min[m].min(axis=0)
-                b_max[bi] = sel_max[m].max(axis=0)
-
-        best_cost = FMAX
-        best_pos = np.float32(0.0)
-        lmin = np.full(3, FMAX, np.float32); lmax = np.full(3, -FMAX, np.float32)
-        rmin = np.full(3, FMAX, np.float32); rmax = np.full(3, -FMAX, np.float32)
-        l_area = np.zeros(NR_SUBPLANES - 1, np.float32)
-        l_cnt = np.zeros(NR_SUBPLANES - 1, np.uint32)
-        r_area = np.zeros(NR_SUBPLANES - 1, np.float32)
-        r_cnt = np.zeros(NR_SUBPLANES - 1, np.uint32)
-        lc = rc = 0
-        for li in range(NR_SUBPLANES - 1):
-            lc += int(b_cnt[li])
-            l_cnt[li] = lc
-            lmin = np.minimum(lmin, b_min[li]); lmax = np.maximum(lmax, b_max[li])
-            l_area[li] = _area(lmin, lmax)
-            ri = NR_SUBPLANES - 1 - li
-            rc += int(b_cnt[ri])
-            r_cnt[ri - 1] = rc
-            rmin = np.minimum(rmin, b_min[ri]); rmax = np.maximum(rmax, b_max[ri])
-            r_area[ri - 1] = _area(rmin, rmax)
-
-        subplane_size = np.float32(bhi - blo) / np.float32(NR_SUBPLANES)
-        for i in range(NR_SUBPLANES - 1):
-            cost = np.float32(l_cnt[i] * l_area[i] + r_cnt[i] * r_area[i])
-            if cost < best_cost:
-                best_cost = cost
-                best_pos = np.float32(blo + subplane_size * np.float32(i + 1.0))
-        return best_cost, best_pos
+    bins = np.arange(NR_SUBPLANES)[None, :, None]
 
     def split_box(lo: int, hi: int):
-        """BVH.cpp:154-179. Returns (cost, position, axis)."""
+        """BVH.cpp:154-225 over the three axes at once, in the reference's
+        float32 arithmetic.  Returns (cost, position, axis)."""
         best = (FMAX, np.float32(0.0), 0)
         if hi - lo == 0:
             return best
-        for axis in range(3):
-            c = centers[indices[lo:hi], axis]
-            blo, bhi = np.float32(c.min()), np.float32(c.max())
-            if blo == bhi:
+        idx = indices[lo:hi]
+        c = centers[idx].T                                 # (3, n)
+        blo, bhi = c.min(axis=1), c.max(axis=1)
+        live = blo != bhi
+        if not live.any():
+            return best
+        span = np.where(live, bhi - blo, np.float32(1.0))
+        interval = np.float32(NR_SUBPLANES) / span
+        bucket = np.minimum(NR_SUBPLANES - 1,
+                            ((c - blo[:, None]) * interval[:, None])
+                            .astype(np.uint32))
+        m = bucket[:, None, :] == bins                     # (3, 6, n)
+        b_cnt = m.sum(axis=2)
+        m = m[..., None]
+        b_min = np.where(m, node_min[idx], FMAX).min(axis=2)   # (3, 6, 3)
+        b_max = np.where(m, node_max[idx], -FMAX).max(axis=2)
+        # planes i = 0..4: left = buckets 0..i, right = buckets i+1..5
+        l_cnt = np.cumsum(b_cnt, axis=1)[:, :-1]
+        r_cnt = np.cumsum(b_cnt[:, ::-1], axis=1)[:, ::-1][:, 1:]
+        l_area = _areas(np.minimum.accumulate(b_min, axis=1)[:, :-1],
+                        np.maximum.accumulate(b_max, axis=1)[:, :-1])
+        r_area = _areas(
+            np.minimum.accumulate(b_min[:, ::-1], axis=1)[:, ::-1][:, 1:],
+            np.maximum.accumulate(b_max[:, ::-1], axis=1)[:, ::-1][:, 1:])
+        # counts times f32 areas promote to f64 and round once, as
+        # u32 * f32 does in the reference's scalar loop
+        cost = (l_cnt * l_area + r_cnt * r_area).astype(np.float32)
+        subplane_size = span / np.float32(NR_SUBPLANES)
+        for axis in np.nonzero(live)[0]:
+            # the first plane strictly below FMAX and every earlier plane
+            ok = cost[axis] < FMAX
+            if not ok.any():
                 continue
-            cost, pos = split_axis(axis, lo, hi, blo, bhi)
-            if cost < best[0]:
-                best = (cost, pos, axis)
+            i = int(np.argmin(np.where(ok, cost[axis], np.inf)))
+            if cost[axis, i] < best[0]:
+                best = (cost[axis, i],
+                        np.float32(blo[axis] + subplane_size[axis]
+                                   * np.float32(i + 1.0)), int(axis))
         return best
 
     def split(parent: int, lo: int, hi: int, depth: int = 0) -> None:
@@ -196,20 +200,25 @@ def _build_python(mesh: Mesh) -> BVH:
             hier_region[parent] = np.array([lo, hi], np.uint32)
             return
 
-        # in-place swap partition (BVH.cpp:128-143) — order-exact
-        lmin = np.full(3, FMAX, np.float32); lmax = np.full(3, -FMAX, np.float32)
-        rmin = np.full(3, FMAX, np.float32); rmax = np.full(3, -FMAX, np.float32)
-        center = lo
-        for i in range(lo, hi):
-            node = indices[i]
-            if centers[node, axis] <= pos:
-                lmin = np.minimum(lmin, node_min[node])
-                lmax = np.maximum(lmax, node_max[node])
-                indices[center], indices[i] = indices[i], indices[center]
-                center += 1
-            else:
-                rmin = np.minimum(rmin, node_min[node])
-                rmax = np.maximum(rmax, node_max[node])
+        # in-place swap partition (BVH.cpp:128-143) — order-exact.  The
+        # left side keeps scan order.  The right side is the block between
+        # the swap cursor and the scan: a right triangle joins its back,
+        # and a left one swaps with its front, which moves the front to
+        # the back.
+        idx = indices[lo:hi]
+        go_left = centers[idx, axis] <= pos
+        left, right = idx[go_left], idx[~go_left]
+        block: deque = deque()
+        for node, is_left in zip(idx.tolist(), go_left.tolist()):
+            if not is_left:
+                block.append(node)
+            elif block:
+                block.rotate(-1)
+        center = lo + len(left)
+        indices[lo:center] = left
+        indices[center:hi] = np.fromiter(block, np.uint32, len(right))
+        lmin, lmax = _bounds(node_min[left], node_max[left])
+        rmin, rmax = _bounds(node_min[right], node_max[right])
 
         child = len(hier_min)
         hier_region[parent] = np.array([child, 0], np.uint32)

@@ -44,34 +44,36 @@ def _node_ranges(buffer_region: np.ndarray):
     (an all-one-side SAH partition produced a zero-triangle child).
     """
     b = len(buffer_region)
-    lo = np.zeros(b, np.int64)
-    hi = np.zeros(b, np.int64)
-    is_leaf = np.zeros(b, bool)
+    region = buffer_region.astype(np.int64).tolist()
+    lo = [0] * b
+    hi = [0] * b
+    is_leaf = [False] * b
     # children are appended after their parent, so a reverse scan sees both
     # children resolved before the parent needs them
     for nid in range(b - 1, -1, -1):
-        r0, r1 = int(buffer_region[nid, 0]), int(buffer_region[nid, 1])
+        r0, r1 = region[nid]
         if r1 > 0 or (r0 == 0 and r1 == 0):
             lo[nid], hi[nid] = r0, r1
             is_leaf[nid] = True
         else:
             lo[nid] = lo[r0]
             hi[nid] = hi[r0 + 1]
-    return lo, hi, is_leaf
+    return (np.array(lo, np.int64), np.array(hi, np.int64),
+            np.array(is_leaf, bool))
 
 
 def bvh_cluster_slices(world_verts: np.ndarray, max_tris: int = 128):
     """Cluster a world-space triangle soup by SAH-BVH treelet cut.
 
     world_verts: (T,3,3) f32.  Returns (perm (T,) int64 triangle
-    permutation, slices tuple[(lo, hi), ...]) where the slices partition
-    [0, T) of the *permuted* order and every slice has <= max_tris
-    triangles.  Oversized SAH leaves (the cost rule can keep large flat
-    regions as one leaf) are chunked.
+    permutation, slices tuple[(lo, hi), ...], the BVH) where the slices
+    partition [0, T) of the *permuted* order and every slice has <=
+    max_tris triangles.  Oversized SAH leaves (the cost rule can keep large
+    flat regions as one leaf) are chunked.
     """
     t = len(world_verts)
     if t == 0:
-        return np.zeros(0, np.int64), ()
+        return np.zeros(0, np.int64), (), None
     bvh = build_bvh(Mesh(world_verts, None))
     lo, hi, is_leaf = _node_ranges(bvh.buffer_region)
 
@@ -94,4 +96,4 @@ def bvh_cluster_slices(world_verts: np.ndarray, max_tris: int = 128):
     # the cut must tile [0, T) exactly
     assert slices[0][0] == 0 and slices[-1][1] == t
     assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
-    return bvh.order.astype(np.int64), tuple(slices)
+    return bvh.order.astype(np.int64), tuple(slices), bvh

@@ -5,7 +5,8 @@
 // in-kernel helpers of rtm_tpu/ops/pallas/megakernel.py:345-391: PCG draws,
 // vector helpers, NaN-safe slab reciprocals, camera ray generation with both
 // jitters (shader:684-706), the sphere loop (shader:486-524), the textured-UV
-// recovery (shader:257-268) and the scatter step (shader:590-649).
+// recovery (shader:257-268), the scatter step (shader:590-649), and the
+// per-bounce shading tail both kernels run after their hit decision.
 //
 // Every expression keeps the plain version's operation order.  Built with
 // --fmad=false and IEEE division / square root, so each operation rounds as
@@ -16,6 +17,7 @@
 // f32 tables (ops/kernels/trav_kernel.py), read with ordinary indexed loads.
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 
 namespace rtm {
@@ -255,6 +257,157 @@ __device__ __forceinline__ void scatter_step(V3 d, V3 nh, V3 hp, float rough,
                     dd.z * (1.0f - rough) + sp.z * rough});
   n_o = {hp.x + nh.x * OFFSET, hp.y + nh.y * OFFSET, hp.z + nh.z * OFFSET};
   seed = s;
+}
+
+// Dispatch slot -> pixel: 8x8 pixel blocks when both sides are multiples
+// of 8 (megakernel.slot_to_xy), else row-major.
+__device__ __forceinline__ void slot_pixel(int lin, int width, bool block8,
+                                           int& xpix, int& ypix) {
+  if (block8) {
+    const int t = lin / 64, j = lin % 64, bw = width / 8;
+    xpix = (t % bw) * 8 + j % 8;
+    ypix = (t / bw) * 8 + j / 8;
+  } else {
+    xpix = lin % width;
+    ypix = lin / width;
+  }
+}
+
+// The material, texture and sphere side tables of a dispatch.
+struct SideTabs {
+  const float* mat;  // (M_ROWS, TAB_W)
+  const float* tex;  // (X_ROWS, TAB_W) or null (untextured)
+  const float* sph;  // (SP_ROWS, s_pad)
+  int s_pad;
+};
+
+// One frame's path state of one ray (vreg_common.PathState); col sums over
+// frames, the rest is reset at each frame's camera ray.
+struct PathState {
+  V3 o, d;
+  uint32_t seed;
+  bool alive;
+  float ctr_r, ctr_g, ctr_b;
+  float col_r, col_g, col_b;
+  V3 m_d;
+  float m_cr, m_cg, m_cb;
+};
+
+// Everything a bounce does after its hit decision (shader:545-666,
+// vreg_common.shade_tail): material / sphere fetch, the triangle/sphere
+// mix, the miss record, the texture record (rec[0..7], textured scenes) or
+// the emission sum, the contribution update and the scatter.  The hit:
+// use_tri, t_hit, winfo = mat | texslot<<8, w_sn = the winner's shading
+// normal, s_idx = the nearest sphere.
+__device__ __forceinline__ void shade_tail(const SideTabs& tb, bool have_tris,
+                                           bool have_sph, bool textured,
+                                           bool use_tri, float t_hit,
+                                           int winfo, V3 w_sn, int s_idx,
+                                           PathState& s, float rec[8]) {
+  const V3 o = s.o, d = s.d;
+  const bool hit = s.alive && t_hit < BIG;
+  const float t_safe = hit ? t_hit : 0.0f;
+  const V3 hp = {o.x + t_safe * d.x, o.y + t_safe * d.y, o.z + t_safe * d.z};
+  const float use_t = use_tri ? 1.0f : 0.0f;
+  const float use_s = (hit && !use_tri) ? 1.0f : 0.0f;
+
+  // triangle material (entry 0 on non-triangle lanes, weighted out)
+  float tm[11];
+  if (have_tris) {
+    const int mid = winfo & 0xFF;
+#pragma unroll
+    for (int r = 0; r < 11; ++r) tm[r] = __ldg(tb.mat + r * TAB_W + mid);
+  } else {
+#pragma unroll
+    for (int r = 0; r < 11; ++r) tm[r] = 0.0f;
+    tm[M_TEX] = -1.0f;
+  }
+  float sm[15];
+  V3 sn = {0.0f, 0.0f, 0.0f};
+  if (have_sph) {
+#pragma unroll
+    for (int r = 0; r < 15; ++r) sm[r] = __ldg(tb.sph + r * tb.s_pad + s_idx);
+    sn = normalize3({hp.x - sm[SP_CX], hp.y - sm[SP_CY], hp.z - sm[SP_CZ]});
+  } else {
+#pragma unroll
+    for (int r = 0; r < 15; ++r) sm[r] = 0.0f;
+    sm[SP_TEX] = -1.0f;
+  }
+  const V3 nh = have_tris
+                    ? V3{w_sn.x * use_t + sn.x * use_s,
+                         w_sn.y * use_t + sn.y * use_s,
+                         w_sn.z * use_t + sn.z * use_s}
+                    : V3{sn.x * use_s, sn.y * use_s, sn.z * use_s};
+  auto mix = [&](int tr, int sr) { return tm[tr] * use_t + sm[sr] * use_s; };
+  const float alr = mix(M_ALR, SP_ALR), alg = mix(M_ALG, SP_ALG),
+              alb = mix(M_ALB, SP_ALB);
+  const float emr = mix(M_EMR, SP_EMR), emg = mix(M_EMG, SP_EMG),
+              emb = mix(M_EMB, SP_EMB);
+  const float emp = mix(M_EMP, SP_EMP);
+  const float rough = mix(M_ROUGH, SP_ROUGH);
+  const float metal = mix(M_METAL, SP_METAL);
+  const float refr = mix(M_REFR, SP_REFR);
+  const float texid = mix(M_TEX, SP_TEX) + (-1.0f) * (1.0f - use_t - use_s);
+
+  const bool live = s.alive && hit;
+  if (s.alive && !hit) {
+    s.m_d = d;
+    s.m_cr = s.ctr_r;
+    s.m_cg = s.ctr_g;
+    s.m_cb = s.ctr_b;
+  }
+  const float livef = live ? 1.0f : 0.0f;
+  if (textured) {
+    const bool has_tex = texid > -0.5f && live;
+    const float htf = has_tex ? 1.0f : 0.0f;
+    rec[0] = s.ctr_r * (has_tex ? emp : emr * emp) * livef;
+    rec[1] = s.ctr_g * (has_tex ? emp : emg * emp) * livef;
+    rec[2] = s.ctr_b * (has_tex ? emp : emb * emp) * livef;
+    float uu = 0.0f, vv = 0.0f;
+    if (have_tris) {
+      const int tslot = min(max((winfo >> 8) & 0xFF, 0), 127);
+      tex_uv(tb.tex, tslot, o, d, uu, vv);
+    }
+    rec[3] = uu * use_t + sn.x * use_s;
+    rec[4] = vv * use_t + sn.y * use_s;
+    rec[5] = sn.z * use_s;
+    rec[6] = has_tex ? texid : -1.0f;
+    rec[7] = use_s * htf;
+    const float keep = 1.0f - livef * (1.0f - htf);
+    s.ctr_r = s.ctr_r * (keep + livef * (1.0f - htf) * alr);
+    s.ctr_g = s.ctr_g * (keep + livef * (1.0f - htf) * alg);
+    s.ctr_b = s.ctr_b * (keep + livef * (1.0f - htf) * alb);
+  } else {
+    s.col_r = s.col_r + emr * emp * s.ctr_r * livef;
+    s.col_g = s.col_g + emg * emp * s.ctr_g * livef;
+    s.col_b = s.col_b + emb * emp * s.ctr_b * livef;
+    s.ctr_r = s.ctr_r * (1.0f - livef + livef * alr);
+    s.ctr_g = s.ctr_g * (1.0f - livef + livef * alg);
+    s.ctr_b = s.ctr_b * (1.0f - livef + livef * alb);
+  }
+
+  if (live) {
+    V3 n_o, n_d;
+    scatter_step(d, nh, hp, rough, metal, refr, s.seed, n_o, n_d);
+    s.o = n_o;
+    s.d = n_d;
+  }
+  s.alive = live;
+}
+
+// Write one frame's 8 miss-record rows of slot `slot` (row stride n).
+__device__ __forceinline__ void write_miss(float* mr, size_t n,
+                                           const PathState& s) {
+  mr[0 * n] = s.m_d.x;
+  mr[1 * n] = s.m_d.y;
+  mr[2 * n] = s.m_d.z;
+  mr[3 * n] = s.m_cr;
+  mr[4 * n] = s.m_cg;
+  mr[5 * n] = s.m_cb;
+  mr[6 * n] = (s.m_d.x * s.m_d.x + s.m_d.y * s.m_d.y + s.m_d.z * s.m_d.z) > 0.0f
+                  ? 1.0f
+                  : 0.0f;
+  mr[7 * n] = 0.0f;
 }
 
 }  // namespace rtm

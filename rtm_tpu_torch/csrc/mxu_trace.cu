@@ -60,6 +60,10 @@ using namespace rtm;
 namespace {
 
 constexpr int BLOCK = 256;
+// Three blocks per SM caps the kernel at 80 registers (123 uncapped, with
+// the shared shading tail).  On the H100 this is the faster choice on
+// Cornell-size scenes, the slower on 2000-triangle ones (PERF.md).
+constexpr int MIN_BLOCKS = 3;
 constexpr int CHUNK = 128;
 constexpr int ROW_W = 40;  // f32 per triangle: 4 rows x 10 ray features
 constexpr int A_ROWS = 8;
@@ -76,10 +80,8 @@ struct Params {
   const int* info;      // (nc*128,)
   const float* cbox;    // (nc, 8)
   int n_tris, nc;
-  const float* mat;     // (M_ROWS, 128)
-  const float* tex;     // (X_ROWS, 128) or null
-  const float* sph;     // (SP_ROWS, s_pad)
-  int s_pad, n_sph;
+  SideTabs tabs;
+  int n_sph;
   float* color;         // (3, n)
   float* miss;          // (8F, n)
   float* rec;           // (8FB, n) or null (untextured)
@@ -93,7 +95,7 @@ __device__ __forceinline__ float row_dot(const float* r, const float* f) {
   return s + r[9];
 }
 
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
     mxu_trace_kernel(const Params p) {
   __shared__ float4 s_rows[CHUNK * ROW_W / 4];
   const float* rows = reinterpret_cast<const float*>(s_rows);
@@ -101,37 +103,31 @@ __global__ void __launch_bounds__(BLOCK)
   const int slot = blockIdx.x * BLOCK + threadIdx.x;
   const bool valid = slot < p.n;
   const size_t n = (size_t)p.n;
-  const int lin = p.pix0 + slot;
   int xpix, ypix;
-  if (p.block8) {
-    const int t = lin / 64, j = lin % 64, bw = p.width / 8;
-    xpix = (t % bw) * 8 + j % 8;
-    ypix = (t / bw) * 8 + j / 8;
-  } else {
-    xpix = lin % p.width;
-    ypix = lin / p.width;
-  }
+  slot_pixel(p.pix0 + slot, p.width, p.block8, xpix, ypix);
   const uint32_t lin_u = (uint32_t)(ypix * p.width + xpix);
   const CamBasis cb = camera_frame(p.camf, p.width, p.height, xpix, ypix);
   const bool have_tris = p.n_tris > 0;
   const bool have_sph = p.n_sph > 0;
   const bool textured = p.rec != nullptr;
 
-  float col_r = 0.0f, col_g = 0.0f, col_b = 0.0f;
+  PathState s;
+  s.col_r = s.col_g = s.col_b = 0.0f;
   for (int frame = 1; frame <= p.frames; ++frame) {
-    uint32_t seed = lin_u + (uint32_t)frame * p.frame_index * SEED_STRIDE;
-    V3 o, d;
-    jittered_ray(seed, cb, o, d);
-    float ctr_r = 1.0f, ctr_g = 1.0f, ctr_b = 1.0f;
-    bool alive = valid;
-    V3 m_d = {0.0f, 0.0f, 0.0f};
-    float m_cr = 0.0f, m_cg = 0.0f, m_cb = 0.0f;
+    s.seed = lin_u + (uint32_t)frame * p.frame_index * SEED_STRIDE;
+    jittered_ray(s.seed, cb, s.o, s.d);
+    s.ctr_r = s.ctr_g = s.ctr_b = 1.0f;
+    s.alive = valid;
+    s.m_d = {0.0f, 0.0f, 0.0f};
+    s.m_cr = s.m_cg = s.m_cb = 0.0f;
 
     for (int b = 0; b < p.bounces; ++b) {
-      seed = seed + (uint32_t)b;  // shader:659
+      s.seed = s.seed + (uint32_t)b;  // shader:659
+      const V3 o = s.o, d = s.d;
+      const bool alive = s.alive;
       float t_sph = BIG;
       int s_idx = 0;
-      if (have_sph) sphere_nearest(p.sph, p.s_pad, o, d, t_sph, s_idx);
+      if (have_sph) sphere_nearest(p.tabs.sph, p.tabs.s_pad, o, d, t_sph, s_idx);
 
       bool use_tri = false;
       float t_hit = t_sph;
@@ -198,126 +194,29 @@ __global__ void __launch_bounds__(BLOCK)
         w_sn = {a1.x, a1.y, a1.z};
       }
 
-      const bool hit = alive && t_hit < BIG;
       if (p.hitrec != nullptr && valid) {
+        const bool hit = alive && t_hit < BIG;
         int hr = 0;
         if (have_tris && use_tri && alive) hr = HR_TRI | ((winfo >> 16) & 0x7FF);
         if (have_sph && hit && !use_tri) hr = HR_SPH | s_idx;
         p.hitrec[(size_t)((frame - 1) * p.bounces + b) * n + slot] = hr;
       }
-      const float t_safe = hit ? t_hit : 0.0f;
-      const V3 hp = {o.x + t_safe * d.x, o.y + t_safe * d.y,
-                     o.z + t_safe * d.z};
-      const float use_t = use_tri ? 1.0f : 0.0f;
-      const float use_s = (hit && !use_tri) ? 1.0f : 0.0f;
-
-      // triangle material (entry 0 on non-triangle lanes, weighted out)
-      float tm[11];
-      if (have_tris) {
-        const int mid = winfo & 0xFF;
+      float rec[8];
+      shade_tail(p.tabs, have_tris, have_sph, textured, use_tri, t_hit, winfo,
+                 w_sn, s_idx, s, rec);
+      if (textured && valid) {
+        float* rr = p.rec + (size_t)(((frame - 1) * p.bounces + b) * 8) * n + slot;
 #pragma unroll
-        for (int r = 0; r < 11; ++r) tm[r] = __ldg(p.mat + r * TAB_W + mid);
-      } else {
-#pragma unroll
-        for (int r = 0; r < 11; ++r) tm[r] = 0.0f;
-        tm[M_TEX] = -1.0f;
+        for (int j = 0; j < 8; ++j) rr[j * n] = rec[j];
       }
-      float sm[15];
-      V3 sn = {0.0f, 0.0f, 0.0f};
-      if (have_sph) {
-#pragma unroll
-        for (int r = 0; r < 15; ++r) sm[r] = __ldg(p.sph + r * p.s_pad + s_idx);
-        sn = normalize3({hp.x - sm[SP_CX], hp.y - sm[SP_CY], hp.z - sm[SP_CZ]});
-      } else {
-#pragma unroll
-        for (int r = 0; r < 15; ++r) sm[r] = 0.0f;
-        sm[SP_TEX] = -1.0f;
-      }
-      const V3 nh = have_tris
-                        ? V3{w_sn.x * use_t + sn.x * use_s,
-                             w_sn.y * use_t + sn.y * use_s,
-                             w_sn.z * use_t + sn.z * use_s}
-                        : V3{sn.x * use_s, sn.y * use_s, sn.z * use_s};
-      auto mix = [&](int tr, int sr) { return tm[tr] * use_t + sm[sr] * use_s; };
-      const float alr = mix(M_ALR, SP_ALR), alg = mix(M_ALG, SP_ALG),
-                  alb = mix(M_ALB, SP_ALB);
-      const float emr = mix(M_EMR, SP_EMR), emg = mix(M_EMG, SP_EMG),
-                  emb = mix(M_EMB, SP_EMB);
-      const float emp = mix(M_EMP, SP_EMP);
-      const float rough = mix(M_ROUGH, SP_ROUGH);
-      const float metal = mix(M_METAL, SP_METAL);
-      const float refr = mix(M_REFR, SP_REFR);
-      const float texid = mix(M_TEX, SP_TEX) + (-1.0f) * (1.0f - use_t - use_s);
-
-      const bool live = alive && hit;
-      const bool miss_now = alive && !hit;
-      if (miss_now) {
-        m_d = d;
-        m_cr = ctr_r;
-        m_cg = ctr_g;
-        m_cb = ctr_b;
-      }
-      const float livef = live ? 1.0f : 0.0f;
-      if (textured) {
-        const bool has_tex = texid > -0.5f && live;
-        const float htf = has_tex ? 1.0f : 0.0f;
-        const float s_r = ctr_r * (has_tex ? emp : emr * emp) * livef;
-        const float s_g = ctr_g * (has_tex ? emp : emg * emp) * livef;
-        const float s_b = ctr_b * (has_tex ? emp : emb * emp) * livef;
-        float uu = 0.0f, vv = 0.0f;
-        if (have_tris) {
-          const int tslot = min(max((winfo >> 8) & 0xFF, 0), 127);
-          tex_uv(p.tex, tslot, o, d, uu, vv);
-        }
-        if (valid) {
-          float* rr = p.rec + (size_t)(((frame - 1) * p.bounces + b) * 8) * n + slot;
-          rr[0 * n] = s_r;
-          rr[1 * n] = s_g;
-          rr[2 * n] = s_b;
-          rr[3 * n] = uu * use_t + sn.x * use_s;
-          rr[4 * n] = vv * use_t + sn.y * use_s;
-          rr[5 * n] = sn.z * use_s;
-          rr[6 * n] = has_tex ? texid : -1.0f;
-          rr[7 * n] = use_s * htf;
-        }
-        const float keep = 1.0f - livef * (1.0f - htf);
-        ctr_r = ctr_r * (keep + livef * (1.0f - htf) * alr);
-        ctr_g = ctr_g * (keep + livef * (1.0f - htf) * alg);
-        ctr_b = ctr_b * (keep + livef * (1.0f - htf) * alb);
-      } else {
-        col_r = col_r + emr * emp * ctr_r * livef;
-        col_g = col_g + emg * emp * ctr_g * livef;
-        col_b = col_b + emb * emp * ctr_b * livef;
-        ctr_r = ctr_r * (1.0f - livef + livef * alr);
-        ctr_g = ctr_g * (1.0f - livef + livef * alg);
-        ctr_b = ctr_b * (1.0f - livef + livef * alb);
-      }
-
-      if (live) {
-        V3 n_o, n_d;
-        scatter_step(d, nh, hp, rough, metal, refr, seed, n_o, n_d);
-        o = n_o;
-        d = n_d;
-      }
-      alive = live;
     }
 
-    if (valid) {
-      float* mr = p.miss + (size_t)((frame - 1) * 8) * n + slot;
-      mr[0 * n] = m_d.x;
-      mr[1 * n] = m_d.y;
-      mr[2 * n] = m_d.z;
-      mr[3 * n] = m_cr;
-      mr[4 * n] = m_cg;
-      mr[5 * n] = m_cb;
-      mr[6 * n] = (m_d.x * m_d.x + m_d.y * m_d.y + m_d.z * m_d.z) > 0.0f ? 1.0f : 0.0f;
-      mr[7 * n] = 0.0f;
-    }
+    if (valid) write_miss(p.miss + (size_t)((frame - 1) * 8) * n + slot, n, s);
   }
   if (valid) {
-    p.color[0 * n + slot] = col_r;
-    p.color[1 * n + slot] = col_g;
-    p.color[2 * n + slot] = col_b;
+    p.color[0 * n + slot] = s.col_r;
+    p.color[1 * n + slot] = s.col_g;
+    p.color[2 * n + slot] = s.col_b;
   }
 }
 
@@ -348,10 +247,7 @@ extern "C" int mxu_trace_launch(const float* camf, uint32_t frame_index,
   p.cbox = cbox;
   p.n_tris = n_tris;
   p.nc = nc;
-  p.mat = mat;
-  p.tex = tex;
-  p.sph = sph;
-  p.s_pad = s_pad;
+  p.tabs = {mat, tex, sph, s_pad};
   p.n_sph = n_sph;
   p.color = color;
   p.miss = miss;

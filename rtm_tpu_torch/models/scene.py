@@ -116,8 +116,9 @@ class TracerScene:
     # contiguous in the stored (permuted) triangle order.
     cluster_slices: tuple = ()
 
-    # per-lane traversal tables: not built until the trav kernel is ported
-    # (ROADMAP.md queue 1 item 7)
+    # skip-link BVH traversal tables (ops/kernels/trav_kernel.py
+    # TravArrays/TravMeta); trav_meta.supported False beyond the trav
+    # table limits
     trav_arrays: object = None
     trav_meta: object = None
 
@@ -268,12 +269,19 @@ def build_tracer_scene(scene: Scene, order: str = "bvh",
     tri_inv_model = cat(invm, (0, 3, 4))
 
     cluster_slices: tuple = ()
+    trav_bvh = None
     if order in ("bvh", "morton") and tri_wa.shape[0] > 1:
         if order == "bvh":
             from ..accel.clusters import bvh_cluster_slices
-            perm, cluster_slices = bvh_cluster_slices(
+            perm, cluster_slices, bvh = bvh_cluster_slices(
                 np.stack([tri_wa, tri_wb, tri_wc], axis=1),
                 max_tris=cluster_max_tris)
+            # The trav tables' hierarchy over the permuted triangles.
+            # Rebuilding it there gives the same nodes in the identity
+            # order: each node's triangles already lie left block, then
+            # right block, so the in-place partition moves none.
+            trav_bvh = dataclasses.replace(
+                bvh, order=np.arange(len(perm), dtype=np.uint32))
         else:
             perm = _morton_order(tri_wa, tri_wb, tri_wc)
         tri_wa, tri_wb, tri_wc = tri_wa[perm], tri_wb[perm], tri_wc[perm]
@@ -295,11 +303,14 @@ def build_tracer_scene(scene: Scene, order: str = "bvh",
         dtype=np.int32 if quad_exact_u8(sky) else np.float32)
 
     from ..ops.kernels.mxu_kernel import build_mxu_tables
+    from ..ops.kernels.trav_kernel import build_trav_tables
     tex_ids_np = (np.array([m.texture_id for m in scene.materials], np.int32)
                   if scene.materials else np.zeros((0,), np.int32))
     n_materials = max(len(scene.materials), 1)   # Materials is never empty
-    mt = build_mxu_tables(tri_wa, tri_wb, tri_wc, tri_normal, tri_mat,
-                          tex_ids_np, n_materials, len(sph_pos))
+    host = (tri_wa, tri_wb, tri_wc, tri_normal, tri_mat, tex_ids_np,
+            n_materials, len(sph_pos))
+    tt = build_trav_tables(*host, bvh=trav_bvh)
+    mt = build_mxu_tables(*host)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -315,6 +326,8 @@ def build_tracer_scene(scene: Scene, order: str = "bvh",
         sky_quads=t(sky_quads), tex_quads=t(tex_quads),
         any_textured=any_textured,
         cluster_slices=cluster_slices,
+        trav_arrays=tt.arrays.to(dev),
+        trav_meta=tt.meta,
         mxu_arrays=mt.arrays.to(dev),
         mxu_meta=mt.meta,
         env_sun=(env_model == "sun"),
@@ -334,11 +347,14 @@ def tracer_scene_from_numpy(arrays: dict, meta: dict, device) -> TracerScene:
     field path (`"sph_pos"`, `"materials.albedo"`, `"mxu_arrays.pair"`,
     ...), in rtm_tpu's layouts: the mxu `attr`/`info` tables sublane-
     replicated (A_ROWS, NC, 8, 128) / (NC, 8, 128), and `pair` a bfloat16
-    array (or its uint16 bits).  meta: `any_textured`, `cluster_slices`,
-    `env_sun` and `mxu_meta` (a dict of n_tris, nc, supported,
-    textured_rows).  The trav tables are not carried (not ported yet).
+    array (or its uint16 bits), and the trav tables
+    (`"trav_arrays.node_box"`, `.node_info`, `.tri_feat`, `.tri_info`) in
+    their 128-entry chunks replicated over 8 sublanes.  meta:
+    `any_textured`, `cluster_slices`, `env_sun`, and `mxu_meta` and
+    `trav_meta` as dicts of their fields.
     """
     from ..ops.kernels.mxu_kernel import MxuMeta, mxu_arrays_from_tpu
+    from ..ops.kernels.trav_kernel import TravMeta, trav_arrays_from_tpu
 
     dev = torch.device(device)
 
@@ -348,12 +364,22 @@ def tracer_scene_from_numpy(arrays: dict, meta: dict, device) -> TracerScene:
     mats = Materials(**{f.name: t(arrays["materials." + f.name])
                         for f in dataclasses.fields(Materials)})
     mm = meta["mxu_meta"]
+    tm = meta["trav_meta"]
+    trav_meta = TravMeta(int(tm["n_nodes"]), int(tm["n_leaves"]),
+                         int(tm["leaf_k"]), int(tm["n_spheres"]),
+                         bool(tm["supported"]),
+                         tuple(int(r) for r in tm["textured_rows"]))
     return TracerScene(
         materials=mats,
         **{name: t(arrays[name]) for name in _TENSOR_FIELDS},
         any_textured=bool(meta["any_textured"]),
         cluster_slices=tuple(tuple(int(v) for v in s)
                              for s in meta["cluster_slices"]),
+        trav_arrays=trav_arrays_from_tpu(
+            *(arrays["trav_arrays." + k] for k in ("node_box", "node_info",
+                                                    "tri_feat", "tri_info")),
+            trav_meta).to(dev),
+        trav_meta=trav_meta,
         mxu_arrays=mxu_arrays_from_tpu(
             arrays["mxu_arrays.pair"], arrays["mxu_arrays.attr"],
             arrays["mxu_arrays.info"], arrays["mxu_arrays.cbox"]).to(dev),

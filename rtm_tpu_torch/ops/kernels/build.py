@@ -28,7 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 # every csrc/<name>.cu kernel library of the package
-KERNELS = ("mxu_trace",)
+KERNELS = ("mxu_trace", "trav_trace")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -91,3 +91,20 @@ def load_kernel_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def ptr(t):
+    """A tensor's device address for a ctypes call; None (NULL) for None."""
+    return None if t is None else t.data_ptr()
+
+
+def check_arg(kernel: str, name: str, t, dtype, shape, dev) -> None:
+    """Raise ValueError unless `t` is a contiguous `dtype` tensor of
+    `shape` on `dev`: what a kernel's plain C interface takes."""
+    if t is None or t.device != dev or t.dtype != dtype \
+            or tuple(t.shape) != shape or not t.is_contiguous():
+        got = ("None" if t is None else
+               f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        raise ValueError(
+            f"{kernel}: {name} must be a contiguous {dtype} tensor of "
+            f"shape {shape} on {dev}; got {got}")

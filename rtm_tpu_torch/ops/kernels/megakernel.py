@@ -1,9 +1,10 @@
 """Slot maps, camera packing and the texture/sky post-pass shared by the
 per-ray kernels.
 
-Port of the parts of rtm_tpu/ops/pallas/megakernel.py that the mxu path
-runs: the constants, the 8x8-block dispatch-slot order (`use_block8`,
-`slot_to_xy`, `pixel_to_slot`, `image_to_slots`, `slots_to_image`),
+Port of the parts of rtm_tpu/ops/pallas/megakernel.py that the mxu and
+trav paths run: the constants, the 8x8-block dispatch-slot order
+(`use_block8`, `slot_to_xy`, `pixel_to_slot`, `image_to_slots`,
+`slots_to_image`),
 `_pack_camera`, and the post-pass (`mega_postpass`,
 `mega_postpass_dense`, `_seg_scan8`, `mega_postpass_compact`) as torch
 ops.  The megakernel itself (`_make_kernel`, `build_mega_pack`,

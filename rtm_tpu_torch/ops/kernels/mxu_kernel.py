@@ -48,18 +48,13 @@ import torch
 from ...config import RenderConfig
 from ..intersect import DET_EPS
 from ..rng import U32_MASK
-from .build import load_kernel_library
+from .build import check_arg, load_kernel_library, ptr
 from .megakernel import (SEED_STRIDE, _pack_camera, mega_postpass,
                          slot_to_xy, slots_to_image, use_block8)
-from .trav_kernel import (TAB_W, traced_mat_tab, traced_sph_tabs,
-                          traced_tex_tab)
-from .vreg_common import (BIG, M_ROWS, NO_TEX, SP_ROWS, X_ROWS, _M_ALB,
-                          _M_ALG, _M_ALR, _M_EMB, _M_EMG, _M_EMP, _M_EMR,
-                          _M_METAL, _M_REFR, _M_ROUGH, _M_TEX, _SP_ALB, _SP_ALG, _SP_ALR,
-                          _SP_CX, _SP_CY, _SP_CZ, _SP_EMB, _SP_EMG, _SP_EMP,
-                          _SP_EMR, _SP_METAL, _SP_REFR, _SP_ROUGH, _SP_TEX,
-                          _cross, _normalize, camera_frame, jittered_ray,
-                          scatter_step, sphere_nearest_smem, tex_uv)
+from .trav_kernel import SideTables, build_side_tables, check_side_tables
+from .vreg_common import (BIG, NO_TEX, PathState, _cross, camera_frame,
+                          jittered_ray, miss_rows, shade_tail,
+                          sphere_nearest_smem)
 
 K = 16                       # ray feature depth: [d, oxd, o, 1] pad 10->16
 KS = 3 * K                   # bf16x3 stacked contraction depth
@@ -247,21 +242,8 @@ def mxu_arrays_from_tpu(pair, attr, info, cbox) -> MxuArrays:
 # The plain version
 # ---------------------------------------------------------------------------
 
-class SideTables(NamedTuple):
-    """The material, texture and sphere tables a dispatch reads, rebuilt
-    from the scene's live values (trav_kernel.traced_*), so an edit of a
-    material or sphere needs no scene rebuild."""
-
-    mat: torch.Tensor            # (M_ROWS, 128) f32
-    tex: torch.Tensor | None     # (X_ROWS, 128) f32, textured scenes only
-    sph: torch.Tensor            # (SP_ROWS, S_pad) f32
-
-
 def side_tables(scene) -> SideTables:
-    tex = (traced_tex_tab(scene, scene.mxu_meta.textured_rows)
-           if scene.any_textured else None)
-    return SideTables(traced_mat_tab(scene.materials), tex,
-                      traced_sph_tabs(scene))
+    return build_side_tables(scene, scene.mxu_meta.textured_rows)
 
 
 def _nearest_tri_plain(ma: MxuArrays, n_tris: int, ox, oy, oz, dx, dy, dz):
@@ -306,7 +288,7 @@ def mxu_trace_plain(scene, tables: SideTables, camf, frame_index: int,
     ma, mm = scene.mxu_arrays, scene.mxu_meta
     have_tris = mm.n_tris > 0
     have_sph = scene.num_spheres > 0
-    mat, tex, sph = tables
+    sph = tables.sph
     n = n_rays
     f32 = dict(dtype=torch.float32, device=dev)
     sel = torch.where
@@ -323,19 +305,20 @@ def mxu_trace_plain(scene, tables: SideTables, camf, frame_index: int,
     rec = torch.empty((8 * frames * bounces, n), **f32) if textured else None
     hitrec = (torch.empty((frames * bounces, n), dtype=torch.int32,
                           device=dev) if return_hitrec else None)
-    col = [torch.zeros(n, **f32) for _ in range(3)]
     zero = torch.zeros(n, **f32)
+    col = [zero] * 3
 
     for frame in range(1, frames + 1):
         seed = (lin_u + frame * frame_index * SEED_STRIDE) & U32_MASK
         ox, oy, oz, dx, dy, dz, seed = jittered_ray(seed, basis)
-        ctr = [torch.ones(n, **f32) for _ in range(3)]
-        alive = torch.ones(n, dtype=torch.bool, device=dev)
-        m_d = [zero] * 3
-        m_c = [zero] * 3
+        s = PathState(ox, oy, oz, dx, dy, dz, seed,
+                      torch.ones(n, dtype=torch.bool, device=dev),
+                      [torch.ones(n, **f32) for _ in range(3)], col,
+                      [zero] * 3, [zero] * 3)
 
         for b in range(bounces):
-            seed = (seed + b) & U32_MASK                     # shader:659
+            s.seed = (s.seed + b) & U32_MASK                 # shader:659
+            ox, oy, oz, dx, dy, dz = s.ox, s.oy, s.oz, s.dx, s.dy, s.dz
             if have_sph:
                 t_sph, s_idx = sphere_nearest_smem(sph, ox, oy, oz,
                                                    dx, dy, dz)
@@ -343,6 +326,7 @@ def mxu_trace_plain(scene, tables: SideTables, camf, frame_index: int,
                 t_sph = torch.full((n,), BIG, **f32)
                 s_idx = torch.zeros(n, dtype=torch.int32, device=dev)
 
+            w_sn = None
             if have_tris:
                 got, win = _nearest_tri_plain(ma, mm.n_tris, ox, oy, oz,
                                               dx, dy, dz)
@@ -356,7 +340,7 @@ def mxu_trace_plain(scene, tables: SideTables, camf, frame_index: int,
                 tdet_w = ox * w_nx + oy * w_ny + oz * w_nz - w_an
                 t_ex = tdet_w / torch.clamp(det_w, min=DET_EPS)
                 # sphere wins ties: triangle improve is strict <
-                use_tri = (got & alive & (det_w > DET_EPS)
+                use_tri = (got & s.alive & (det_w > DET_EPS)
                            & (tdet_w >= 0.0) & (t_ex < t_sph))
                 t_hit = sel(use_tri, t_ex, t_sph)
                 winfo = sel(use_tri, ma.info[win], NO_TEX << 8)
@@ -366,111 +350,23 @@ def mxu_trace_plain(scene, tables: SideTables, camf, frame_index: int,
                 winfo = torch.full((n,), NO_TEX << 8, dtype=torch.int32,
                                    device=dev)
 
-            hit = alive & (t_hit < BIG)
             if return_hitrec:
+                hit = s.alive & (t_hit < BIG)
                 hr = torch.zeros(n, dtype=torch.int32, device=dev)
                 if have_tris:
-                    hr = sel(use_tri & alive,
+                    hr = sel(use_tri & s.alive,
                              HR_TRI | ((winfo >> 16) & 0x7FF), hr)
                 if have_sph:
                     hr = sel(hit & ~use_tri, HR_SPH | s_idx, hr)
                 hitrec[(frame - 1) * bounces + b] = hr
-            t_safe = sel(hit, t_hit, 0.0)
-            hx = ox + t_safe * dx
-            hy = oy + t_safe * dy
-            hz = oz + t_safe * dz
-
-            use_t = use_tri.float()
-            use_s = (hit & ~use_tri).float()
-
-            if have_tris:
-                tm = mat[:, (winfo & 0xFF).long()]
-            else:
-                tm = torch.zeros((mat.shape[0], n), **f32)
-                tm[_M_TEX] = -1.0
-            if have_sph:
-                sm = sph[:, s_idx.long()]
-                snx, sny, snz = _normalize(hx - sm[_SP_CX], hy - sm[_SP_CY],
-                                           hz - sm[_SP_CZ])
-                s_al = (sm[_SP_ALR], sm[_SP_ALG], sm[_SP_ALB])
-                s_em = (sm[_SP_EMR], sm[_SP_EMG], sm[_SP_EMB])
-                s_emp, s_rough, s_metal, s_refr, s_tex = (
-                    sm[_SP_EMP], sm[_SP_ROUGH], sm[_SP_METAL], sm[_SP_REFR],
-                    sm[_SP_TEX])
-            else:
-                s_al = s_em = (zero,) * 3
-                s_emp = s_rough = s_metal = s_refr = zero
-                s_tex = zero - 1.0
-                snx = sny = snz = zero
-
-            if have_tris:
-                nxh = w_sn[0] * use_t + snx * use_s
-                nyh = w_sn[1] * use_t + sny * use_s
-                nzh = w_sn[2] * use_t + snz * use_s
-            else:
-                nxh, nyh, nzh = snx * use_s, sny * use_s, snz * use_s
-
-            def mix(tv, sv):
-                return tv * use_t + sv * use_s
-
-            al = [mix(tm[r], s_al[i])
-                  for i, r in enumerate((_M_ALR, _M_ALG, _M_ALB))]
-            em = [mix(tm[r], s_em[i])
-                  for i, r in enumerate((_M_EMR, _M_EMG, _M_EMB))]
-            emp = mix(tm[_M_EMP], s_emp)
-            rough = mix(tm[_M_ROUGH], s_rough)
-            metal = mix(tm[_M_METAL], s_metal)
-            refr = mix(tm[_M_REFR], s_refr)
-            texid = mix(tm[_M_TEX], s_tex) + (-1.0) * (1.0 - use_t - use_s)
-
-            live = alive & hit
-            miss_now = alive & ~hit
-            m_d = [sel(miss_now, v, m) for v, m in zip((dx, dy, dz), m_d)]
-            m_c = [sel(miss_now, v, m) for v, m in zip(ctr, m_c)]
-
-            livef = live.float()
+            rows = shade_tail(tables, have_tris, have_sph, textured, s,
+                              use_tri, t_hit, winfo, w_sn, s_idx)
             if textured:
-                has_tex = (texid > -0.5) & live
-                htf = has_tex.float()
-                s_rgb = [ctr[i] * sel(has_tex, emp, em[i] * emp) * livef
-                         for i in range(3)]
-                if have_tris:
-                    slot = torch.clamp((winfo >> 8) & 0xFF, 0, 127)
-                    uu, vv = tex_uv(tex, slot, ox, oy, oz, dx, dy, dz)
-                else:
-                    uu = vv = zero
                 row = ((frame - 1) * bounces + b) * 8
-                rec[row + 0:row + 3] = torch.stack(s_rgb)
-                rec[row + 3] = uu * use_t + snx * use_s
-                rec[row + 4] = vv * use_t + sny * use_s
-                rec[row + 5] = snz * use_s
-                rec[row + 6] = sel(has_tex, texid, -1.0)
-                rec[row + 7] = use_s * htf
-                keep = 1.0 - livef * (1.0 - htf)
-                ctr = [ctr[i] * (keep + livef * (1.0 - htf) * al[i])
-                       for i in range(3)]
-            else:
-                col = [col[i] + em[i] * emp * ctr[i] * livef
-                       for i in range(3)]
-                ctr = [ctr[i] * (1.0 - livef + livef * al[i])
-                       for i in range(3)]
+                rec[row:row + 8] = torch.stack(rows)
 
-            (n_ox, n_oy, n_oz, n_dx, n_dy, n_dz, n_seed) = scatter_step(
-                dx, dy, dz, nxh, nyh, nzh, hx, hy, hz, rough, metal, refr,
-                seed)
-            ox, oy, oz = sel(live, n_ox, ox), sel(live, n_oy, oy), sel(
-                live, n_oz, oz)
-            dx, dy, dz = sel(live, n_dx, dx), sel(live, n_dy, dy), sel(
-                live, n_dz, dz)
-            seed = sel(live, n_seed, seed)
-            alive = live
-
-        frow = (frame - 1) * 8
-        miss[frow:frow + 3] = torch.stack(m_d)
-        miss[frow + 3:frow + 6] = torch.stack(m_c)
-        miss[frow + 6] = ((m_d[0] * m_d[0] + m_d[1] * m_d[1]
-                           + m_d[2] * m_d[2]) > 0.0).float()
-        miss[frow + 7] = 0.0
+        col = s.col
+        miss[(frame - 1) * 8:frame * 8] = miss_rows(s)
 
     return torch.stack(col), miss, rec, hitrec
 
@@ -485,20 +381,6 @@ _ARGTYPES = [_P, ctypes.c_uint32, _I, _I, _I, _I, _I, _I,   # camf .. bounces
              _P, _P, _P, _P, _I, _I,                          # geometry
              _P, _P, _P, _I, _I,                              # side tables
              _P, _P, _P, _P, _P]                              # outs, stream
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _check(name, t, dtype, shape, dev):
-    if t is None or t.device != dev or t.dtype != dtype \
-            or tuple(t.shape) != shape or not t.is_contiguous():
-        got = ("None" if t is None else
-               f"{t.dtype} {tuple(t.shape)} on {t.device}")
-        raise ValueError(
-            f"mxu_trace: {name} must be a contiguous {dtype} tensor of "
-            f"shape {shape} on {dev}; got {got}")
 
 
 def mxu_trace(scene, tables: SideTables, camf, frame_index: int,
@@ -528,21 +410,13 @@ def mxu_trace(scene, tables: SideTables, camf, frame_index: int,
     frames, bounces = cfg.max_frames, cfg.max_bounces
     ma = scene.mxu_arrays
     nc = mm.nc
-    mat, tex, sph = tables
-    _check("camf", camf, torch.float32, (64,), dev)
-    _check("pair32", ma.pair32, torch.float32, (nc * CHUNK, ROW_W), dev)
-    _check("attr", ma.attr, torch.float32, (nc * CHUNK, A_ROWS), dev)
-    _check("info", ma.info, torch.int32, (nc * CHUNK,), dev)
-    _check("cbox", ma.cbox, torch.float32, (nc, 8), dev)
-    _check("mat", mat, torch.float32, (M_ROWS, TAB_W), dev)
-    _check("sph", sph, torch.float32, (SP_ROWS, sph.shape[1]), dev)
-    if sph.shape[1] < scene.num_spheres:
-        raise ValueError(f"mxu_trace: sph holds {sph.shape[1]} spheres, "
-                         f"the scene {scene.num_spheres}")
-    if scene.any_textured:
-        _check("tex", tex, torch.float32, (X_ROWS, TAB_W), dev)
-    else:
-        tex = None
+    chk = lambda *a: check_arg("mxu_trace", *a)  # noqa: E731
+    chk("camf", camf, torch.float32, (64,), dev)
+    chk("pair32", ma.pair32, torch.float32, (nc * CHUNK, ROW_W), dev)
+    chk("attr", ma.attr, torch.float32, (nc * CHUNK, A_ROWS), dev)
+    chk("info", ma.info, torch.int32, (nc * CHUNK,), dev)
+    chk("cbox", ma.cbox, torch.float32, (nc, 8), dev)
+    mat, tex, sph = check_side_tables("mxu_trace", scene, tables, dev)
 
     f32 = dict(dtype=torch.float32, device=dev)
     color = torch.empty((3, n), **f32)
@@ -562,9 +436,9 @@ def mxu_trace(scene, tables: SideTables, camf, frame_index: int,
                  int(pixel_offset), n, cfg.width, cfg.height, frames,
                  bounces, ma.pair32.data_ptr(), ma.attr.data_ptr(),
                  ma.info.data_ptr(), ma.cbox.data_ptr(), mm.n_tris, nc,
-                 mat.data_ptr(), _ptr(tex), sph.data_ptr(), sph.shape[1],
+                 mat.data_ptr(), ptr(tex), sph.data_ptr(), sph.shape[1],
                  scene.num_spheres, color.data_ptr(), miss.data_ptr(),
-                 _ptr(rec), _ptr(hitrec), stream)
+                 ptr(rec), ptr(hitrec), stream)
     if err != 0:
         raise RuntimeError(f"mxu_trace: kernel launch failed with CUDA "
                            f"error {err}")

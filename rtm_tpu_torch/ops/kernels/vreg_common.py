@@ -3,17 +3,20 @@ torch functions vectorised over rays.
 
 Port of rtm_tpu/ops/pallas/vreg_common.py plus the in-kernel helpers of
 rtm_tpu/ops/pallas/megakernel.py:345-391.  These are the plain versions:
-the kernels' plain twins (ops/kernels/mxu_kernel.py `mxu_trace_plain`) call
+the kernels' plain twins (`mxu_trace_plain`, `trav_trace_plain`) call
 them, and csrc/bounce_common.cuh holds their `__device__` counterparts with
-the same operation order, so the CUDA kernel and its plain version round
-alike.  Every function is an elementwise map over (N,) tensors: camera ray
-generation with both jitters (shader:684-706), the PCG draws, the sphere
-loop, the textured-UV recovery (shader:257-268) and the scatter step
-(shader:590-649).
+the same operation order, so the CUDA kernels and their plain versions
+round alike.  Every function is an elementwise map over (N,) tensors:
+camera ray generation with both jitters (shader:684-706), the PCG draws,
+the sphere loop, the textured-UV recovery (shader:257-268), the scatter
+step (shader:590-649) and the shading tail both kernels run after their
+hit decision (`shade_tail`, on a `PathState`).
 
 u32 seeds are carried in int64 tensors (see ops/rng.py).
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -275,4 +278,139 @@ def scatter_step(dx, dy, dz, nxh, nyh, nzh, hx, hy, hz,
     n_dz = w(is_refract, d_rz, dfz)
     n_seed = w(is_refract, seed_refr, s6)
     return n_ox, n_oy, n_oz, n_dx, n_dy, n_dz, n_seed
+
+
+# ---------------------------------------------------------------------------
+# The per-bounce shading tail shared by the per-ray kernels
+# ---------------------------------------------------------------------------
+
+@dataclass
+class PathState:
+    """One frame's per-ray path state, (N,) tensors, carried across
+    bounces (PathState in csrc/bounce_common.cuh).  `col` sums over
+    frames; the rest is reset at each frame's camera ray."""
+
+    ox: torch.Tensor
+    oy: torch.Tensor
+    oz: torch.Tensor
+    dx: torch.Tensor
+    dy: torch.Tensor
+    dz: torch.Tensor
+    seed: torch.Tensor                   # u32 in int64
+    alive: torch.Tensor                  # bool
+    ctr: list                            # contribution r, g, b
+    col: list                            # radiance r, g, b
+    m_d: list                            # miss direction
+    m_c: list                            # contribution at the miss
+
+
+def shade_tail(tables, have_tris: bool, have_sph: bool, textured: bool,
+               s: PathState, use_tri, t_hit, winfo, w_sn, s_idx):
+    """Everything a bounce does after its hit decision (shader:545-666):
+    material / sphere fetch, the triangle/sphere mix, the miss record,
+    the texture record or the emission sum, the contribution update and
+    the scatter.  use_tri / t_hit / winfo (mat | texslot<<8) / w_sn (the
+    winner's shading normal) / s_idx describe the hit; `s` is updated in
+    place.  Returns the bounce's 8 texture-record rows (textured scenes)
+    or None.  `tables` is (mat, tex, sph) as trav_kernel.SideTables."""
+    mat, tex, sph = tables
+    sel = torch.where
+    ox, oy, oz, dx, dy, dz = s.ox, s.oy, s.oz, s.dx, s.dy, s.dz
+    f32 = dict(dtype=torch.float32, device=ox.device)
+    zero = torch.zeros_like(ox)
+
+    hit = s.alive & (t_hit < BIG)
+    t_safe = sel(hit, t_hit, 0.0)
+    hx = ox + t_safe * dx
+    hy = oy + t_safe * dy
+    hz = oz + t_safe * dz
+
+    use_t = use_tri.float()
+    use_s = (hit & ~use_tri).float()
+
+    if have_tris:
+        tm = mat[:, (winfo & 0xFF).long()]
+    else:
+        tm = torch.zeros((mat.shape[0], ox.shape[0]), **f32)
+        tm[_M_TEX] = -1.0
+    if have_sph:
+        sm = sph[:, s_idx.long()]
+        snx, sny, snz = _normalize(hx - sm[_SP_CX], hy - sm[_SP_CY],
+                                   hz - sm[_SP_CZ])
+        s_al = (sm[_SP_ALR], sm[_SP_ALG], sm[_SP_ALB])
+        s_em = (sm[_SP_EMR], sm[_SP_EMG], sm[_SP_EMB])
+        s_emp, s_rough, s_metal, s_refr, s_tex = (
+            sm[_SP_EMP], sm[_SP_ROUGH], sm[_SP_METAL], sm[_SP_REFR],
+            sm[_SP_TEX])
+    else:
+        s_al = s_em = (zero,) * 3
+        s_emp = s_rough = s_metal = s_refr = zero
+        s_tex = zero - 1.0
+        snx = sny = snz = zero
+
+    if have_tris:
+        nxh = w_sn[0] * use_t + snx * use_s
+        nyh = w_sn[1] * use_t + sny * use_s
+        nzh = w_sn[2] * use_t + snz * use_s
+    else:
+        nxh, nyh, nzh = snx * use_s, sny * use_s, snz * use_s
+
+    def mix(tv, sv):
+        return tv * use_t + sv * use_s
+
+    al = [mix(tm[r], s_al[i])
+          for i, r in enumerate((_M_ALR, _M_ALG, _M_ALB))]
+    em = [mix(tm[r], s_em[i])
+          for i, r in enumerate((_M_EMR, _M_EMG, _M_EMB))]
+    emp = mix(tm[_M_EMP], s_emp)
+    rough = mix(tm[_M_ROUGH], s_rough)
+    metal = mix(tm[_M_METAL], s_metal)
+    refr = mix(tm[_M_REFR], s_refr)
+    texid = mix(tm[_M_TEX], s_tex) + (-1.0) * (1.0 - use_t - use_s)
+
+    live = s.alive & hit
+    miss_now = s.alive & ~hit
+    s.m_d = [sel(miss_now, v, m) for v, m in zip((dx, dy, dz), s.m_d)]
+    s.m_c = [sel(miss_now, v, m) for v, m in zip(s.ctr, s.m_c)]
+
+    livef = live.float()
+    ctr = s.ctr
+    rec = None
+    if textured:
+        has_tex = (texid > -0.5) & live
+        htf = has_tex.float()
+        s_rgb = [ctr[i] * sel(has_tex, emp, em[i] * emp) * livef
+                 for i in range(3)]
+        if have_tris:
+            slot = torch.clamp((winfo >> 8) & 0xFF, 0, 127)
+            uu, vv = tex_uv(tex, slot, ox, oy, oz, dx, dy, dz)
+        else:
+            uu = vv = zero
+        rec = s_rgb + [uu * use_t + snx * use_s, vv * use_t + sny * use_s,
+                       snz * use_s, sel(has_tex, texid, -1.0),
+                       use_s * htf]
+        keep = 1.0 - livef * (1.0 - htf)
+        s.ctr = [ctr[i] * (keep + livef * (1.0 - htf) * al[i])
+                 for i in range(3)]
+    else:
+        s.col = [s.col[i] + em[i] * emp * ctr[i] * livef for i in range(3)]
+        s.ctr = [ctr[i] * (1.0 - livef + livef * al[i]) for i in range(3)]
+
+    (n_ox, n_oy, n_oz, n_dx, n_dy, n_dz, n_seed) = scatter_step(
+        dx, dy, dz, nxh, nyh, nzh, hx, hy, hz, rough, metal, refr, s.seed)
+    s.ox, s.oy, s.oz = sel(live, n_ox, ox), sel(live, n_oy, oy), sel(
+        live, n_oz, oz)
+    s.dx, s.dy, s.dz = sel(live, n_dx, dx), sel(live, n_dy, dy), sel(
+        live, n_dz, dz)
+    s.seed = sel(live, n_seed, s.seed)
+    s.alive = live
+    return rec
+
+
+def miss_rows(s: PathState) -> torch.Tensor:
+    """The frame's 8 miss-record rows: direction, contribution, valid, 0."""
+    m_d = s.m_d
+    valid = ((m_d[0] * m_d[0] + m_d[1] * m_d[1] + m_d[2] * m_d[2])
+             > 0.0).float()
+    return torch.stack(m_d + s.m_c + [valid, torch.zeros_like(valid)])
 

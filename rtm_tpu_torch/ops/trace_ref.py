@@ -1,7 +1,7 @@
 """Backend resolution and the full-frame dispatch.
 
 Port of rtm_tpu/ops/trace_ref.py `auto_backend` and `render_dispatch`,
-the mxu branch only.  Everything the port does not have yet raises
+the mxu and trav branches.  Everything the port does not have yet raises
 NotImplementedError naming the ROADMAP.md item (queue 1) that will port it;
 nothing falls back silently to another path.
 """
@@ -13,7 +13,6 @@ from ..config import RenderConfig
 _NOT_PORTED = {
     "xla": "item 3 (torch reference renderer)",
     "pallas": "item 9 (per-bounce sweep through the intersect kernel)",
-    "trav": "item 7 (trav kernel)",
     "megakernel": "item 8 (megakernel)",
     "wavefront2": "item 9 (wavefront2 + sweep kernel)",
 }
@@ -46,7 +45,8 @@ def render_dispatch(scene, cam, frame_index: int, cfg: RenderConfig,
     accumulation-image I/O which lives in runtime/renderer.py).
 
     frame_index: the 1-based accumulation counter (python int).
-    backend: 'auto' (see auto_backend, on the scene's device) or 'mxu'.
+    backend: 'auto' (see auto_backend, on the scene's device), 'mxu' (falls
+    to trav beyond the mxu tables, as in rtm_tpu) or 'trav'.
     Returns (H, W, 3) f32 radiance averaged over cfg.max_frames samples,
     on the scene's device."""
     if backend == "auto":
@@ -59,10 +59,16 @@ def render_dispatch(scene, cam, frame_index: int, cfg: RenderConfig,
         if mm is not None and mm.supported:
             from .kernels.mxu_kernel import render_mxu
             return render_mxu(scene, cam, frame_index, cfg)
-        _not_ported("a scene beyond the mxu table limits (<= 2047 "
-                    "triangles, <= 128 materials / textured triangles / "
-                    "spheres), which rtm_tpu sends to the trav kernel",
-                    _NOT_PORTED["trav"])
+        backend = "trav"                          # table-limit fallback
+    if backend == "trav":
+        tm = scene.trav_meta
+        if tm is not None and tm.supported:
+            from .kernels.trav_kernel import render_trav
+            return render_trav(scene, cam, frame_index, cfg)
+        _not_ported("a scene beyond the trav table limits (< 1024 BVH "
+                    "nodes, <= 512 leaves, <= 128 materials / textured "
+                    "triangles / spheres), which rtm_tpu sends to the "
+                    "megakernel", _NOT_PORTED["megakernel"])
     if backend in _NOT_PORTED:
         _not_ported(f"backend {backend!r}", _NOT_PORTED[backend])
     raise ValueError(f"unknown backend {backend!r}")

@@ -20,6 +20,8 @@ place).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,7 @@ import torch
 import rtm_tpu_torch
 from rtm_tpu_torch.models.scenes import dragon_grid
 from rtm_tpu_torch.ops.kernels import mxu_kernel as tmk
+from rtm_tpu_torch.ops.kernels import trav_kernel as ttk
 from rtm_tpu_torch.ops.kernels.megakernel import _pack_camera
 
 pytestmark = pytest.mark.cuda
@@ -58,7 +61,8 @@ def cuda():
 
 
 def _scene(sid, device):
-    host = dragon_grid(2) if sid == "grid2" else rtm_tpu_torch.load_scene(sid)
+    host = (dragon_grid(int(sid[4:])) if isinstance(sid, str)
+            else rtm_tpu_torch.load_scene(sid))
     return rtm_tpu_torch.build_tracer_scene(host, device=device)
 
 
@@ -139,6 +143,110 @@ def test_render_dispatch_on_the_card(cuda):
     got = rtm_tpu_torch.render_dispatch(_scene(3, cuda), cam, 2, cfg)
     assert got.device.type == "cuda" and tmk.mxu_trace.launches == before + 1
     want = rtm_tpu_torch.render_dispatch(_scene(3, "cpu"), cam, 2, cfg)
+    diff = np.abs(got.cpu().numpy() - want.numpy()).max(axis=-1)
+    assert diff.mean() <= 5e-3 and (diff > 2e-2).mean() <= 0.01
+    assert (diff > 0.2).mean() <= 0.003
+
+
+# trav kernel.  Kernel and plain version compute the same f32 operations in
+# the same order, so a lane differs only where a transcendental's last place
+# tips a near-tie: >= 99.9% of lanes must agree on color / miss / rec within
+# 1e-3, and the per-slot node-visit and triangle-test counts on as many.
+# name: (scene, width, height, bounces, frames, frame_index)
+TRAV_CASES = {
+    "scene1": (1, 32, 32, 4, 1, 1),
+    "scene3": (3, 32, 32, 4, 1, 1),
+    "grid11": ("grid11", 32, 32, 4, 1, 1),
+    "grid11_tail_2frames": ("grid11", 24, 20, 3, 2, 5),
+}
+
+
+def _trav_setup(name, device):
+    sid, w, h, bounces, frames, fi = TRAV_CASES[name]
+    st = _scene(sid, device)
+    cfg = rtm_tpu_torch.RenderConfig(width=w, height=h, max_bounces=bounces,
+                                     max_frames=frames, draw_environment=True)
+    camf = _pack_camera(rtm_tpu_torch.Camera().spec(w, h), device)
+    return st, ttk.trav_side_tables(st), camf, fi, cfg
+
+
+@pytest.mark.parametrize("name", list(TRAV_CASES))
+def test_trav_kernel_matches_plain(cuda, name):
+    st, tabs, camf, fi, cfg = _trav_setup(name, cuda)
+    n = cfg.width * cfg.height
+    before = ttk.trav_trace.launches
+    k = ttk.trav_trace(st, tabs, camf, fi, 0, n, cfg, with_stats=True)
+    assert ttk.trav_trace.launches == before + 1
+    p = ttk.trav_trace_plain(st, tabs, camf, fi, 0, n, cfg, with_stats=True)
+    torch.cuda.synchronize()
+    diff = torch.zeros(n, device=cuda)
+    for a, b in zip(k[:3], p[:3]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.shape == b.shape and torch.isfinite(a).all()
+            diff = torch.maximum(diff, (a - b).abs().amax(dim=0))
+    assert float((diff <= MAX_ABS_ERR).float().mean()) >= AGREE_MIN
+    assert float((k[3] == p[3]).all(dim=0).float().mean()) >= AGREE_MIN
+    if st.trav_meta.n_nodes:
+        assert int(k[3][1].sum()) > 0
+
+
+def test_trav_kernel_window_equals_full_dispatch(cuda):
+    """Slots [o, o + n) dispatched alone equal that window of the full
+    dispatch: each thread traces its own slot."""
+    st, tabs, camf, fi, cfg = _trav_setup("grid11_tail_2frames", cuda)
+    off, rays = 100, 300
+    full = ttk.trav_trace(st, tabs, camf, fi, 0, cfg.width * cfg.height,
+                          cfg, with_stats=True)
+    part = ttk.trav_trace(st, tabs, camf, fi, off, rays, cfg,
+                          with_stats=True)
+    for a, b in zip(full, part):
+        if a is not None:
+            assert torch.equal(a[:, off:off + rays], b)
+
+
+def test_trav_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    st = _scene(3, cuda)
+    cfg = rtm_tpu_torch.RenderConfig(width=16, height=16, max_bounces=3)
+    camf = _pack_camera(rtm_tpu_torch.Camera().spec(16, 16), cuda)
+    tabs = ttk.trav_side_tables(st)
+    before = ttk.trav_trace.launches
+    for bad in (camf.double(), camf[:32]):
+        with pytest.raises(ValueError, match="camf"):
+            ttk.trav_trace(st, tabs, bad, 1, 0, 256, cfg)
+    ta = st.trav_arrays
+    for field, bad in (("node", ta.node.float()),
+                       ("tri_feat", ta.tri_feat.cpu()),
+                       ("tri_info", ta.tri_info.long())):
+        broken = dataclasses.replace(
+            st, trav_arrays=dataclasses.replace(ta, **{field: bad}))
+        with pytest.raises(ValueError, match=field):
+            ttk.trav_trace(broken, tabs, camf, 1, 0, 256, cfg)
+    for name, bad in (("mat", tabs.mat.T), ("tex", None),
+                      ("sph", tabs.sph.half())):
+        with pytest.raises(ValueError, match=name):
+            ttk.trav_trace(st, tabs._replace(**{name: bad}), camf, 1, 0,
+                           256, cfg)
+    with pytest.raises(ValueError, match="scene on"):
+        ttk.trav_trace(st, tabs, camf.cpu(), 1, 0, 256, cfg)
+    assert ttk.trav_trace.launches == before
+
+
+def test_trav_render_dispatch_on_the_card(cuda):
+    """A scene beyond the mxu tables (dragon_grid(11), 2420 triangles)
+    renders through the trav kernel on the card, and its frame matches the
+    same scene rendered on the CPU through the plain version."""
+    w = h = 32
+    cfg = rtm_tpu_torch.RenderConfig(width=w, height=h, max_bounces=4,
+                                     draw_environment=True)
+    cam = rtm_tpu_torch.Camera().spec(w, h)
+    st = _scene("grid11", cuda)
+    before = ttk.trav_trace.launches
+    got = rtm_tpu_torch.render_dispatch(st, cam, 2, cfg)
+    assert got.device.type == "cuda"
+    assert ttk.trav_trace.launches == before + 1
+    want = rtm_tpu_torch.render_dispatch(_scene("grid11", "cpu"), cam, 2,
+                                         cfg)
     diff = np.abs(got.cpu().numpy() - want.numpy()).max(axis=-1)
     assert diff.mean() <= 5e-3 and (diff > 2e-2).mean() <= 0.01
     assert (diff > 0.2).mean() <= 0.003

@@ -18,10 +18,11 @@ TRI_FIELDS = ("sph_pos", "sph_radius", "sph_mat", "tri_wa", "tri_wb",
 
 
 def host_scene(pkg_scenes, sid):
-    """Built-in scene `sid` (1..5) or "grid2" (dragon_grid(2)) from either
+    """Built-in scene `sid` (1..5) or "gridK" (dragon_grid(K)) from either
     package's models.scenes."""
-    return (pkg_scenes.dragon_grid(2) if sid == "grid2"
-            else pkg_scenes.load_scene(sid))
+    if isinstance(sid, str) and sid.startswith("grid"):
+        return pkg_scenes.dragon_grid(int(sid[4:]))
+    return pkg_scenes.load_scene(sid)
 
 
 def jax_scene(sid):
@@ -47,12 +48,15 @@ def jax_scene_arrays(sj):
                    for name in TRI_FIELDS})
     arrays.update({f"mxu_arrays.{k}": np.asarray(getattr(sj.mxu_arrays, k))
                    for k in ("pair", "attr", "info", "cbox")})
+    arrays.update({f"trav_arrays.{k}": np.asarray(v)
+                   for k, v in sj.trav_arrays._asdict().items()})
     mm = sj.mxu_meta
     meta = dict(any_textured=sj.any_textured,
                 cluster_slices=sj.cluster_slices, env_sun=sj.env_sun,
                 mxu_meta=dict(n_tris=mm.n_tris, nc=mm.nc,
                               supported=mm.supported,
-                              textured_rows=mm.textured_rows))
+                              textured_rows=mm.textured_rows),
+                trav_meta=sj.trav_meta._asdict())
     return arrays, meta
 
 

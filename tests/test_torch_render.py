@@ -27,6 +27,7 @@ from rtm_tpu.ops.trace_ref import render_dispatch as j_render_dispatch
 from rtm_tpu.runtime.renderer import render_progressive as j_progressive
 from rtm_tpu_torch.models import scenes as tscenes
 from rtm_tpu_torch.ops.kernels import mxu_kernel as tmk
+from rtm_tpu_torch.ops.kernels import trav_kernel as ttk
 from rtm_tpu_torch.ops.trace_ref import auto_backend
 from test_torch_parity import host_scene, jax_scene
 
@@ -129,7 +130,7 @@ def test_auto_backend_resolution():
     assert auto_backend(big, "cuda") == "trav"
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas", "trav", "megakernel",
+@pytest.mark.parametrize("backend", ["xla", "pallas", "megakernel",
                                      "wavefront2"])
 def test_unported_backends_raise(backend):
     st = _port_scene(2)
@@ -146,13 +147,33 @@ def test_unported_configurations_raise():
     with pytest.raises(NotImplementedError, match="flat-shade preview"):
         rtm_tpu_torch.render_dispatch(st, cam, 1, flat)
     _, cfg = _cfgs(16, 16, 3)
-    big = dataclasses.replace(
-        st, mxu_meta=st.mxu_meta._replace(supported=False))
-    for backend in ("auto", "mxu"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            rtm_tpu_torch.render_dispatch(big, cam, 1, cfg, backend=backend)
+    beyond = dataclasses.replace(
+        st, mxu_meta=st.mxu_meta._replace(supported=False),
+        trav_meta=st.trav_meta._replace(supported=False))
+    for backend in ("auto", "mxu", "trav"):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            rtm_tpu_torch.render_dispatch(beyond, cam, 1, cfg,
+                                          backend=backend)
     with pytest.raises(ValueError, match="unknown backend"):
         rtm_tpu_torch.render_dispatch(st, cam, 1, cfg, backend="mxu2")
+
+
+@pytest.mark.parametrize("backend", ["auto", "mxu", "trav"])
+def test_mxu_unsupported_scene_renders_through_trav(backend):
+    """A scene beyond the mxu tables goes to the trav path, as in
+    rtm_tpu; on the CPU that is the kernel's plain version."""
+    st = _port_scene(2)
+    big = dataclasses.replace(
+        st, mxu_meta=st.mxu_meta._replace(supported=False))
+    assert auto_backend(big, "cpu") == "trav"
+    _, cfg = _cfgs(16, 16, 3)
+    mxu_before, trav_before = tmk.mxu_trace.launches, ttk.trav_trace.launches
+    got = rtm_tpu_torch.render_dispatch(
+        big, rtm_tpu_torch.Camera().spec(16, 16), 1, cfg, backend=backend)
+    assert (tmk.mxu_trace.launches, ttk.trav_trace.launches) == (
+        mxu_before, trav_before)
+    assert got.shape == (16, 16, 3) and torch.isfinite(got).all()
+    assert float(got.mean()) > 0.0
 
 
 def _imported_modules(path: Path):
@@ -169,6 +190,9 @@ def test_port_never_imports_jax():
     files = sorted((ROOT / "rtm_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"rtm_tpu_torch/accel/trav.py",
+            "rtm_tpu_torch/ops/kernels/trav_kernel.py"} <= names
     banned = ("jax", "jaxlib", "ml_dtypes", "rtm_tpu")
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imported_modules(f)
