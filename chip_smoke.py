@@ -9,9 +9,12 @@ PyTorch version on the card, then drives the port's main path through the
 entry points a user calls: scene 3 (Cornell box) at 512x512, 8 bounces,
 1 sample per dispatch, progressive accumulation with `backend="auto"`,
 which resolves to the mxu kernel.  It also renders the widest scene the
-mxu tables take (`dragon_grid`, <= 2047 triangles), and the trav path:
+mxu tables take (`dragon_grid`, <= 2047 triangles), the trav path:
 `dragon_grid(56)` (62,720 triangles), which auto resolves to the trav
-kernel, at the same size.
+kernel, at the same size, the wavefront2 path (cluster-sweep kernel) on
+that scene, the pallas path (intersect kernel) on scene 3, and the
+differentiable path: `loss_and_grad` through the mxu record replay and
+wavefront2, and a few `inverse_render` steps.
 
 Phases (each prints lines starting with its tag, and its seconds):
   [card]    nvidia-smi name and power limit, torch and CUDA versions
@@ -43,6 +46,33 @@ Phases (each prints lines starting with its tag, and its seconds):
   [trav-plain] the trav plain version's time for one frame at the [trav]
             shape, and its output held against the kernel's on the same
             inputs by the [trav-compare] criteria
+  [sweep-compare] the cluster-sweep kernel vs its plain version on the ray
+            bands of all 8 bounces (unsorted) of scene 3, dragon_grid(10)
+            and dragon_grid(56) at 64x64: the winning row agrees on >= 0.999
+            of alive lanes, per-tile cluster passes equal on >= 0.99 of tiles
+  [intersect-compare] the intersect kernel vs its plain version on the same
+            bands: the winner agrees on >= 0.999 of lanes, per-tile passes
+            equal on >= 0.99 of tiles, t within 1e-6 relative where the
+            winners agree
+  [wf2]     dragon_grid(56), 512x512, 8 bounces, backend="wavefront2": 2
+            warm-up + WF2_TIMED frames of render_progressive; ms/frame, sweep
+            launches per frame, the sweep kernel's ms per frame by CUDA
+            events, its bound and plain time, cluster passes per
+            tile-bounce, and the plain version's output on those bands held
+            against the kernel's by the [sweep-compare] criteria;
+            [wf2-profile] the device idle share; and frame 1 at 64x64
+            against the port's xla path by images_close
+  [pallas]  scene 3, 512x512, 8 bounces, backend="pallas": ms/frame, the
+            intersect kernel's ms per frame, launches, bound and plain time,
+            and the plain version's output on those rays held against the
+            kernel's by the [intersect-compare] criteria; then
+            dragon_grid(56) at the size one frame allows in 5 s
+  [grad]    loss_and_grad on scene 3 through "mxu" (record replay,
+            remat=False) and "wavefront2" (bands=4) at 64x64 against the
+            "xla" route (rtol 1e-3, atol 1e-5), then at 512x512, 8 bounces:
+            forward-loss ms, fwd+bwd ms, peak device memory, finite grads
+  [inverse] inverse_render on scene 3 at 512x512 through "mxu": 5 Adam steps
+            from a perturbed wall albedo (albedo only); the loss must fall
   [total]   the whole run's seconds
 
 The line before the last is the card's `nvidia-smi` name and power limit;
@@ -80,6 +110,19 @@ TRAV_COMPARE_GRIDS = (11, TRAV_GRID)
 TRAV_WARM, TRAV_TIMED = 2, 16
 TILE = 1024                  # rtm_tpu's ray tile: the stats granule
 TILE_AGREE_MIN = 0.99
+# FP32 operations of one (ray, row) pair of the sweep kernels
+# (csrc/tri_sweep.cuh: det 6, tdet 6, udet 11, vdet 11, wdet 2, then the
+# min-chain gate 6 + max and division 2 + the best-t compare 1 for the
+# cluster sweep, or 5 compares + division + compare for the intersect
+# kernel's strict gate) and of one ray's slab test against a cluster box
+SWEEP_PAIR_OPS = 45
+STRICT_PAIR_OPS = 43
+SLAB_OPS = 25
+WF2_TIMED = 8
+PALLAS_TIMED = 4
+PALLAS_BUDGET_S = 5.0        # one dragon_grid(56) pallas frame at most
+GRAD_RES = 64                # route-vs-route gradient check
+INVERSE_STEPS = 5
 
 MAIN_RES = 512
 MAIN_BOUNCES = 8
@@ -384,59 +427,73 @@ def build_scene(host_scene):
     return scene, time.perf_counter() - t0
 
 
+def path_kernels():
+    """backend -> the wrapper of the kernel that backend's path launches."""
+    from rtm_tpu_torch.ops.kernels.intersect_kernel import intersect_sweep
+    from rtm_tpu_torch.ops.kernels.mxu_kernel import mxu_trace
+    from rtm_tpu_torch.ops.kernels.sweep_kernel import cluster_sweep
+    from rtm_tpu_torch.ops.kernels.trav_kernel import trav_trace
+
+    return {"mxu": mxu_trace, "trav": trav_trace,
+            "wavefront2": cluster_sweep, "pallas": intersect_sweep}
+
+
 def drive(sm: Smoke, tag: str, scene, build_s: float, frames_warm: int,
-          frames_timed: int, backend_expected: str = "mxu"):
-    """Drive a path through the user entry points (render_progressive with
-    backend="auto" on a scene from build_tracer_scene, built in build_s
-    host seconds); the launch counts are set to 0 just before the frames
-    and read just after.  Returns (cfg, image, ms/frame, launches of the
-    expected kernel)."""
+          frames_timed: int, backend_expected: str = "mxu",
+          backend: str = "auto"):
+    """Drive a path through the user entry points (render_progressive on a
+    scene from build_tracer_scene, built in build_s host seconds; `backend`
+    "auto" must resolve to `backend_expected`); every launch count is set
+    to 0 just before the frames and read just after.  The fused kernels
+    launch once per frame, the sweep kernels once per bounce.  Returns
+    (cfg, image, ms/frame, launches of the expected kernel)."""
     import torch
     from rtm_tpu_torch import Camera, RenderConfig, render_progressive
-    from rtm_tpu_torch.ops.kernels.mxu_kernel import mxu_trace
-    from rtm_tpu_torch.ops.kernels.trav_kernel import trav_trace
     from rtm_tpu_torch.ops.trace_ref import auto_backend
 
-    kernels = {"mxu": mxu_trace, "trav": trav_trace}
+    kernels = path_kernels()
     cfg = RenderConfig(width=MAIN_RES, height=MAIN_RES,
                        max_bounces=MAIN_BOUNCES, max_frames=1,
                        draw_environment=True, accumulate=True)
     cam = Camera().spec(cfg.width, cfg.height)
-    backend = auto_backend(scene, scene.device.type)
+    resolved = (auto_backend(scene, scene.device.type) if backend == "auto"
+                else backend)
     sm.check(scene.device.type == "cuda", f"{tag} scene not on the card")
-    sm.check(backend == backend_expected,
-             f"{tag} auto resolved to {backend}, not {backend_expected}")
+    sm.check(resolved == backend_expected,
+             f"{tag} {backend} resolved to {resolved}, not "
+             f"{backend_expected}")
+    per_frame = 1 if backend_expected in ("mxu", "trav") else cfg.max_bounces
 
     torch.cuda.synchronize()
     for k in kernels.values():
         k.launches = 0
     if frames_warm:
-        render_progressive(scene, cam, cfg, frames_warm)
+        render_progressive(scene, cam, cfg, frames_warm, backend=backend)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    img = render_progressive(scene, cam, cfg, frames_timed)
+    img = render_progressive(scene, cam, cfg, frames_timed, backend=backend)
     end.record()
     torch.cuda.synchronize()
     counts = {name: k.launches for name, k in kernels.items()}
     launches = counts[backend_expected]
     ms = start.elapsed_time(end) / frames_timed
-    dispatched = frames_warm + frames_timed
+    dispatched = (frames_warm + frames_timed) * per_frame
     grays = cfg.width * cfg.height * cfg.max_frames * cfg.max_bounces \
         / (ms * 1e-3) / 1e9
     finite = bool(torch.isfinite(img).all())
     mean = float(img.mean())
     metric = ("cornell_grays_per_s" if backend_expected == "mxu"
               else "grays_per_s")
-    print(f"[{tag}] backend={backend} tris={scene.num_triangles} "
+    print(f"[{tag}] backend={resolved} tris={scene.num_triangles} "
           f"{cfg.width}x{cfg.height} bounces={cfg.max_bounces} "
           f"frames={dispatched} ms/frame={ms:.4f} "
           f"{metric}={grays:.6f} launches={counts} "
           f"scene_build_s={build_s:.3f} "
           f"image_mean={mean:.6f} finite={finite}", flush=True)
     sm.check(launches == dispatched, f"{tag} launches {launches} != "
-             f"frames dispatched {dispatched}")
+             f"{per_frame} per frame dispatched ({dispatched})")
     sm.check(sum(counts.values()) == launches,
              f"{tag} other kernels launched: {counts}")
     sm.check(finite and mean > 0.0, f"{tag} image finite={finite} "
@@ -465,7 +522,7 @@ def kernel_and_postpass_ms(scene, cfg, reps: int):
 
 
 def phase_profile(scene, cfg, frames: int, frame_ms: float,
-                  tag: str = "profile"):
+                  tag: str = "profile", backend: str = "auto"):
     """Where a path's frame time goes: torch.profiler over `frames`
     frames of render_progressive.  Prints the wall time per frame (with the
     profiler on), the device's busy time per frame (union of the device
@@ -480,12 +537,12 @@ def phase_profile(scene, cfg, frames: int, frame_ms: float,
     from rtm_tpu_torch import Camera, render_progressive
 
     cam = Camera().spec(cfg.width, cfg.height)
-    render_progressive(scene, cam, cfg, 1)
+    render_progressive(scene, cam, cfg, 1, backend=backend)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t0 = time.perf_counter()
-        render_progressive(scene, cam, cfg, frames)
+        render_progressive(scene, cam, cfg, frames, backend=backend)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = sorted(((e.time_range.start, e.time_range.end, e.name)
@@ -528,6 +585,510 @@ def phase_profile(scene, cfg, frames: int, frame_ms: float,
         print(f"[{tag}]   op {self_dev_us(e) / 1e3 / frames:9.4f} ms/frame"
               f"  {e.count / frames:6.1f}/frame  {e.key}  "
               f"{str(e.input_shapes)[:100]}", flush=True)
+
+
+@contextmanager
+def recording(module, name: str):
+    """Replace `module.name` by a wrapper that records each call's
+    positional arguments (the inputs a path hands a kernel, for the
+    comparisons to replay); the original is restored on exit."""
+    orig = getattr(module, name)
+    calls = []
+
+    def record(*args, **kw):
+        calls.append(args)
+        return orig(*args, **kw)
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def record_bands(scene, res: int, bounces: int, sort_from: int = 99):
+    """The (8, Np) ray bands the wavefront2 path hands the cluster sweep in
+    frame 1 of a res x res dispatch (unsorted by default)."""
+    import torch
+    from rtm_tpu_torch import Camera, RenderConfig
+    from rtm_tpu_torch.ops import wavefront2 as wf2
+
+    cfg = RenderConfig(width=res, height=res, max_bounces=bounces,
+                       draw_environment=True)
+    with torch.no_grad(), recording(wf2, "sweep_call") as calls:
+        wf2.render_rays_wavefront2(scene, Camera().spec(res, res), 1, cfg,
+                                   pixel_offset=0, n_rays=res * res,
+                                   sort_from=sort_from)
+    return [c[1] for c in calls]
+
+
+def sweep_agreement(state8, k, p):
+    """Kernel outputs k = (t, row, passes) against the plain version's p on
+    one band: (winning row agreement on alive lanes, share of tiles with
+    equal passes, max abs t error on the hit lanes whose rows agree)."""
+    t, i, passes = k
+    pt, pi, pp = p[:3]
+    alive = state8[6] > 0.5
+    agree = float((i == pi)[alive].float().mean()) if alive.any() else 1.0
+    tiles = float((passes == pp).float().mean())
+    same = (i == pi) & (i >= 0)
+    err = float((t - pt)[same].abs().max()) if same.any() else 0.0
+    return agree, tiles, err
+
+
+def intersect_agreement(k, p):
+    """Kernel outputs k = (t, idx, passes) against the plain version's p:
+    (winner agreement on all lanes, share of tiles with equal passes, max
+    relative and max abs t error on the hit lanes whose winners agree)."""
+    import torch
+
+    t, i, passes = k
+    pt, pi, pp = p[:3]
+    agree = float((i == pi).float().mean())
+    tiles = float((passes == pp).float().mean())
+    same = (i == pi) & (i >= 0)
+    if not same.any():
+        return agree, tiles, 0.0, 0.0
+    d = (t - pt)[same].abs()
+    rel = torch.where(d > 0, d / pt[same].abs(), 0.0)   # t = 0 hits: 0 / 0
+    return agree, tiles, float(rel.max()), float(d.max())
+
+
+def check_sweep(sm: Smoke, tag: str, what: str, agree, tiles):
+    sm.check(agree >= AGREE_MIN, f"{tag} {what} alive-lane agreement {agree}")
+    sm.check(tiles >= TILE_AGREE_MIN, f"{tag} {what} tile passes {tiles}")
+
+
+def check_intersect(sm: Smoke, tag: str, what: str, agree, tiles, rel):
+    sm.check(agree >= AGREE_MIN, f"{tag} {what} agreement {agree}")
+    sm.check(tiles >= TILE_AGREE_MIN, f"{tag} {what} tile passes {tiles}")
+    sm.check(rel <= 1e-6, f"{tag} {what} t rel err {rel}")
+
+
+def sweep_plain(pack, state8):
+    """The cluster sweep's plain version on one band, with the clusters each
+    tile passed."""
+    from rtm_tpu_torch.ops.kernels.sweep_kernel import cluster_sweep_plain
+
+    return cluster_sweep_plain(pack.tri_feats, pack.boxes,
+                               pack.cluster_offsets, pack.cluster_widths,
+                               state8, with_passed=True)
+
+
+def phase_sweep_compare(sm: Smoke, scenes):
+    """Cluster-sweep kernel vs plain version on every band of (name, scene,
+    bands); returns the max abs t error on the lanes whose rows agree."""
+    import torch
+    from rtm_tpu_torch.ops.kernels.megakernel import build_mega_pack
+    from rtm_tpu_torch.ops.kernels.sweep_kernel import cluster_sweep
+
+    worst = 0.0
+    for name, scene, bands in scenes:
+        pack = build_mega_pack(scene)
+        agree, tiles, err = 1.0, 1.0, 0.0
+        for state8 in bands:
+            k = cluster_sweep(pack, state8)
+            p = sweep_plain(pack, state8)
+            torch.cuda.synchronize()
+            a, tl, e = sweep_agreement(state8, k, p)
+            agree, tiles, err = min(agree, a), min(tiles, tl), max(err, e)
+        print(f"[sweep-compare] {name} tris={scene.num_triangles} "
+              f"clusters={pack.n_clusters} bands={len(bands)} "
+              f"min_alive_agree={agree:.6f} min_tile_passes_equal="
+              f"{tiles:.4f} max_abs_err={err:.3e}", flush=True)
+        check_sweep(sm, "sweep-compare", name, agree, tiles)
+        worst = max(worst, err)
+    return worst
+
+
+def intersect_tables(scene):
+    """(feats, boxes, n_clusters) of the intersect kernel for a scene."""
+    import torch
+    from rtm_tpu_torch.ops.kernels.intersect_kernel import (
+        pack_triangle_features)
+
+    feats, lo, hi, nc = pack_triangle_features(scene.tri_wa, scene.tri_wb,
+                                               scene.tri_wc)
+    boxes = torch.cat([lo.T, hi.T, torch.zeros((2, nc), device=lo.device)])
+    return feats, boxes.contiguous(), nc
+
+
+def intersect_pair(rays, feats, boxes, nc):
+    """(kernel outputs, plain outputs with the clusters each tile passed) of
+    the intersect sweep on one set of ray rows."""
+    from rtm_tpu_torch.ops.kernels.intersect_kernel import (
+        intersect_sweep, intersect_sweep_plain)
+
+    return (intersect_sweep(rays, feats, boxes, nc, return_passes=True),
+            intersect_sweep_plain(rays, feats, boxes, nc, return_passes=True,
+                                  with_passed=True))
+
+
+def phase_intersect_compare(sm: Smoke, scenes):
+    """Intersect kernel vs plain version on the same bands; returns the max
+    abs t error on the lanes whose winners agree."""
+    import torch
+    from rtm_tpu_torch.ops.kernels.intersect_kernel import pack_rays
+
+    worst = 0.0
+    for name, scene, bands in scenes:
+        feats, boxes, nc = intersect_tables(scene)
+        agree, tiles, rel, err = 1.0, 1.0, 0.0, 0.0
+        for state8 in bands:
+            rays = pack_rays(state8[0:3].T, state8[3:6].T)
+            k, p = intersect_pair(rays, feats, boxes, nc)
+            torch.cuda.synchronize()
+            a, tl, r, e = intersect_agreement(k, p)
+            agree, tiles = min(agree, a), min(tiles, tl)
+            rel, err = max(rel, r), max(err, e)
+        print(f"[intersect-compare] {name} tris={scene.num_triangles} "
+              f"clusters={nc} bands={len(bands)} min_agree={agree:.6f} "
+              f"min_tile_passes_equal={tiles:.4f} max_rel_err={rel:.3e} "
+              f"max_abs_err={err:.3e}", flush=True)
+        check_intersect(sm, "intersect-compare", name, agree, tiles, rel)
+        worst = max(worst, err)
+    return worst
+
+
+def sweep_bound(pack, bands, passed):
+    """(bound_ms, bound_by) of the cluster sweep over `bands` (one frame):
+    each launch reads the tables and its band once and writes t, the row
+    and the tile counts once, at the HBM rate; against the work this run's
+    data needs at the FP32 rate: one slab test per (alive ray, cluster) and
+    one pair test per (alive ray, real triangle row) of each cluster its
+    tile passed (`passed`: the plain version's (tiles, C) pass matrices).
+    Dead rays and padding rows feed no output the path reads."""
+    import torch
+
+    tab_bytes = sum(x.numel() * x.element_size() for x in (
+        pack.tri_feats, pack.boxes, pack.offsets_dev, pack.widths_dev))
+    cluster_of_row = torch.repeat_interleave(
+        torch.arange(pack.n_clusters, device=pack.boxes.device),
+        pack.widths_dev.long())
+    real_rows = torch.zeros(pack.n_clusters, dtype=torch.float64,
+                            device=pack.boxes.device).index_add_(
+        0, cluster_of_row, (pack.padded_to_real >= 0).double())
+    byts = ops = 0.0
+    for state8, pm in zip(bands, passed):
+        n, tiles = state8.shape[1], pm.shape[0]
+        alive = (state8[6] > 0.5).reshape(tiles, -1).sum(dim=1).double()
+        byts += tab_bytes + state8.numel() * 4 + n * 8 + tiles * 4
+        ops += (float((alive * (pm.double() @ real_rows)).sum())
+                * SWEEP_PAIR_OPS
+                + float(alive.sum()) * pack.n_clusters * SLAB_OPS)
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def intersect_bound(feats, boxes, nc, n_tris, rays, passed):
+    """(bound_ms, bound_by) of the intersect kernel over one frame's ray
+    rows: inputs read once and outputs written once at the HBM rate,
+    against one slab test per (ray, cluster) and one pair test per (ray,
+    real triangle) of each cluster its tile passed (`passed`: the plain
+    version's (tiles, C) pass matrices; a cluster's last rows may be
+    padding), at the FP32 rate.  The kernel has no alive mask: every ray's
+    winner is an output."""
+    import torch
+
+    real = (n_tris - 128 * torch.arange(nc, device=feats.device)).clamp(
+        0, 128).double()
+    byts = ops = 0.0
+    for r, pm in zip(rays, passed):
+        n, tiles = r.shape[0], pm.shape[0]
+        byts += (r.numel() + feats.numel() + boxes.numel()) * 4 + n * 8
+        ops += (float((pm.double() @ real).sum()) * (n // tiles)
+                * STRICT_PAIR_OPS + n * nc * SLAB_OPS)
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_wf2(sm: Smoke, scene, build_s: float):
+    """The wavefront2 path on the [trav] scene: drive, then the sweep
+    kernel alone on one frame's bands (sorted as the path sorts them), its
+    plain version on the same bands, held against it by the
+    [sweep-compare] criteria, and the bound.  Returns (cfg, ms/frame,
+    launches, kernel ms, plain ms, bound ms, bound by, max abs error)."""
+    import torch
+    from rtm_tpu_torch.ops.kernels.megakernel import build_mega_pack
+    from rtm_tpu_torch.ops.kernels.sweep_kernel import cluster_sweep
+
+    cfg, _, ms, launches = drive(sm, "wf2", scene, build_s, 2, WF2_TIMED,
+                                 backend_expected="wavefront2",
+                                 backend="wavefront2")
+    pack = build_mega_pack(scene)
+    bands = record_bands(scene, cfg.width, cfg.max_bounces, sort_from=1)
+    k_ms = cuda_ms(lambda: [cluster_sweep(pack, b) for b in bands], 5)
+    k_outs = [cluster_sweep(pack, b) for b in bands]
+    p_outs = []
+    plain_ms = cuda_ms(lambda: p_outs.extend(sweep_plain(pack, b)
+                                             for b in bands), 1, warm=0)
+    agree, tiles, err = 1.0, 1.0, 0.0
+    for state8, k, p in zip(bands, k_outs, p_outs):
+        a, tl, e = sweep_agreement(state8, k, p)
+        agree, tiles, err = min(agree, a), min(tiles, tl), max(err, e)
+    bound_ms, bound_by = sweep_bound(pack, bands, [p[3] for p in p_outs])
+    passes = torch.stack([k[2] for k in k_outs]).float()
+    alive = sum(int((b[6] > 0.5).sum()) for b in bands)
+    print(f"[wf2] clusters={pack.n_clusters} sweep_launches/frame="
+          f"{len(bands)} sweep_kernel_ms/frame={k_ms:.4f} "
+          f"plain_ms/frame={plain_ms:.3f} bound_ms={bound_ms:.5f} "
+          f"({bound_by}) cluster_passes/tile-bounce="
+          f"{float(passes.mean()):.3f} of {pack.n_clusters} "
+          f"alive_rays/frame={alive}", flush=True)
+    print(f"[wf2] kernel vs plain on these bands: min_alive_agree="
+          f"{agree:.6f} min_tile_passes_equal={tiles:.4f} "
+          f"max_abs_err={err:.3e}", flush=True)
+    check_sweep(sm, "wf2", "kernel vs plain", agree, tiles)
+    sm.check(len(bands) == cfg.max_bounces, "wf2 bands per frame")
+    return cfg, ms, launches, k_ms, plain_ms, bound_ms, bound_by, err
+
+
+def phase_wf2_vs_xla(sm: Smoke, scene):
+    """Frame 1 at 64x64 of the wavefront2 path against the port's xla path
+    on the card, with rtm_tpu's outlier allowance (tests/test_wavefront2.py:
+    <= 0.3% of pixels off by more than 1e-3, means within 2e-3)."""
+    import torch
+    from rtm_tpu_torch import Camera, RenderConfig, render_dispatch
+
+    res = COMPARE_RES
+    cfg = RenderConfig(width=res, height=res, max_bounces=MAIN_BOUNCES,
+                       draw_environment=True)
+    cam = Camera().spec(res, res)
+    with torch.no_grad():
+        wf = render_dispatch(scene, cam, 1, cfg, backend="wavefront2")
+        ref = render_dispatch(scene, cam, 1, cfg, backend="xla")
+    d = (wf - ref).abs().amax(dim=-1)
+    bad = float((d > 1e-3).float().mean())
+    mean_rel = abs(float(wf.mean()) / float(ref.mean()) - 1.0)
+    print(f"[wf2] vs xla {res}x{res}: frac_off_1e-3={bad:.5f} "
+          f"mean_rel={mean_rel:.2e}", flush=True)
+    sm.check(bool(torch.isfinite(wf).all()) and bad <= 0.003
+             and mean_rel <= 2e-3, f"wf2 vs xla: {bad}, {mean_rel}")
+
+
+def phase_pallas(sm: Smoke, scene, build_s: float, big):
+    """The pallas path on scene 3: drive, then the intersect kernel alone
+    on one frame's per-bounce rays, its plain version on the same rays,
+    held against it by the [intersect-compare] criteria, and the bound;
+    then one dragon_grid(56) frame at the largest of 512/256/128 squared
+    that the 128x128 frame's time predicts under PALLAS_BUDGET_S.  Returns
+    (ms/frame, launches, kernel ms, plain ms, bound ms, bound by, max abs
+    error)."""
+    import torch
+    from rtm_tpu_torch import Camera, RenderConfig, render_dispatch
+    from rtm_tpu_torch.ops.kernels import intersect_kernel as ik
+    from rtm_tpu_torch.ops.trace_ref import pixel_grid, render_pixels
+
+    cfg, _, ms, launches = drive(sm, "pallas", scene, build_s, 1,
+                                 PALLAS_TIMED, backend_expected="pallas",
+                                 backend="pallas")
+    x, y = pixel_grid(cfg.width, cfg.height, scene.device)
+    with torch.no_grad(), recording(ik, "nearest_triangle_pallas") as calls:
+        render_pixels(scene, Camera().spec(cfg.width, cfg.height), x, y, 1,
+                      cfg, backend="pallas")
+    feats, boxes, nc = intersect_tables(scene)
+    packed = [ik.pack_rays(c[0], c[1]) for c in calls]
+    k_ms = cuda_ms(lambda: [ik.intersect_sweep(r, feats, boxes, nc)
+                            for r in packed], 5)
+    k_outs = [ik.intersect_sweep(r, feats, boxes, nc, return_passes=True)
+              for r in packed]
+    p_outs = []
+    plain_ms = cuda_ms(lambda: p_outs.extend(
+        ik.intersect_sweep_plain(r, feats, boxes, nc, return_passes=True,
+                                 with_passed=True) for r in packed),
+        1, warm=0)
+    agree, tiles, rel, err = 1.0, 1.0, 0.0, 0.0
+    for k, p in zip(k_outs, p_outs):
+        a, tl, r, e = intersect_agreement(k, p)
+        agree, tiles = min(agree, a), min(tiles, tl)
+        rel, err = max(rel, r), max(err, e)
+    bound_ms, bound_by = intersect_bound(feats, boxes, nc,
+                                         scene.num_triangles, packed,
+                                         [p[3] for p in p_outs])
+    print(f"[pallas] clusters={nc} intersect_launches/frame={len(packed)} "
+          f"intersect_kernel_ms/frame={k_ms:.4f} plain_ms/frame="
+          f"{plain_ms:.3f} bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
+    print(f"[pallas] kernel vs plain on these rays: min_agree={agree:.6f} "
+          f"min_tile_passes_equal={tiles:.4f} max_rel_err={rel:.3e} "
+          f"max_abs_err={err:.3e}", flush=True)
+    check_intersect(sm, "pallas", "kernel vs plain", agree, tiles, rel)
+    sm.check(len(packed) == cfg.max_bounces, "pallas sweeps per frame")
+
+    est = None
+    for res in (128, 256, 512):
+        if est is not None and est * (res / 128) ** 2 > PALLAS_BUDGET_S:
+            print(f"[pallas] dragon_grid{TRAV_GRID}: stopped at "
+                  f"{res // 2}x{res // 2}; a {res}x{res} frame would take "
+                  f"~{est * (res / 128) ** 2:.1f} s > {PALLAS_BUDGET_S} s",
+                  flush=True)
+            break
+        bcfg = RenderConfig(width=res, height=res, max_bounces=MAIN_BOUNCES,
+                            draw_environment=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            img = render_dispatch(big, Camera().spec(res, res), 1, bcfg,
+                                  backend="pallas")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        if res == 128:
+            est = sec
+        print(f"[pallas] dragon_grid{TRAV_GRID} tris={big.num_triangles} "
+              f"{res}x{res} {MAIN_BOUNCES} bounces: one frame {sec:.3f} s, "
+              f"finite={bool(torch.isfinite(img).all())}", flush=True)
+    return ms, launches, k_ms, plain_ms, bound_ms, bound_by, err
+
+
+def grad_rig():
+    """tests/test_grad.py's `_scene()` on the card: two materials, three
+    spheres and one triangle (no shared triangle edges)."""
+    from rtm_tpu_torch import (Material, Mesh, MeshInstance, Scene,
+                               SphereDef, Triangle, build_tracer_scene)
+    from rtm_tpu_torch.models import scenes
+
+    s = Scene(sky=scenes._procedural_sky())
+    s.add_material(Material((0.7, 0.4, 0.2), (1, 1, 1), 0.3, 0.2, 0, 1.0, -1))
+    s.add_material(Material((1, 1, 1), (0.9, 0.8, 0.7), 0, 0, 2.0, 1.0, -1))
+    s.add_sphere(SphereDef((0, 0, -2.5), 1.0, 0))
+    s.add_sphere(SphereDef((0, -101, -2), 100.0, 0))
+    s.add_sphere(SphereDef((1.5, 2.0, -2.0), 0.8, 1))
+    s.add_mesh(Mesh.from_triangles([
+        Triangle((-2.5, -0.8, -4), (2.5, -0.8, -4), (0, 2.5, -4))]))
+    s.add_object(MeshInstance(mesh_id=0, material_id=0))
+    return build_tracer_scene(s)
+
+
+MATERIAL_GRADS = ("albedo", "emission_color", "emission_power")
+
+
+def grad_parity(sm: Smoke, name: str, scene, checks: dict):
+    """At GRAD_RES x GRAD_RES, 8 bounces: each route's gradients against
+    the xla route's; prints per field the largest |diff| / (1e-3 |xla| +
+    1e-5), the ratio to rtm_tpu's tolerance (<= 1 meets it), and checks
+    the fields `checks` names for the route (rtol, atol, fields)."""
+    import torch
+    from rtm_tpu_torch import Camera, RenderConfig
+    from rtm_tpu_torch.diff import extract_params, loss_and_grad
+
+    params = extract_params(scene)
+    res = GRAD_RES
+    cfg = RenderConfig(width=res, height=res, max_bounces=MAIN_BOUNCES,
+                       draw_environment=True)
+    cam = Camera().spec(res, res)
+    target = torch.zeros((res, res, 3), device=scene.device)
+    _, g_ref = loss_and_grad(params, scene, cam, target, 1, cfg,
+                             backend="xla", remat=False)
+    for route, (rtol, atol, fields, kw) in checks.items():
+        _, g = loss_and_grad(params, scene, cam, target, 1, cfg,
+                             backend=route, remat=False, **kw)
+        worst = []
+        for f in g.fields():
+            a, b = getattr(g, f), getattr(g_ref, f)
+            if not a.numel():
+                continue
+            ratio = float(((a - b).abs() / (1e-3 * b.abs() + 1e-5)).max())
+            worst.append(f"{f}={ratio:.3f}")
+            sm.check(bool(torch.isfinite(a).all()), f"grad {route} {f} "
+                     "not finite")
+            if fields is None or f in fields:
+                sm.check(torch.allclose(a, b, rtol=rtol, atol=atol),
+                         f"grad {name} {route} {f} vs xla at {res}x{res}")
+        print(f"[grad] {name} {route} vs xla {res}x{res} (checked "
+              f"{'all' if fields is None else ','.join(fields)} at rtol "
+              f"{rtol}, atol {atol}): max |diff| / (1e-3 |xla| + 1e-5) "
+              + " ".join(worst), flush=True)
+
+
+def phase_grad(sm: Smoke, scene, target_full):
+    """loss_and_grad through the mxu and wavefront2 routes: at 64x64
+    against the xla route, then timed at the main path's shape."""
+    import torch
+    from rtm_tpu_torch import Camera, RenderConfig
+    from rtm_tpu_torch.diff import extract_params, loss_and_grad, render_loss
+
+    tight = (1e-3, 1e-5)
+    # the rig (no shared edges): every mxu gradient, and wavefront2's
+    # material gradients (tests/test_wavefront2.py compares those)
+    grad_parity(sm, "rig", grad_rig(), {
+        "mxu": (*tight, None, {}),
+        "wavefront2": (*tight, MATERIAL_GRADS, {"bands": 4})})
+    # scene 3: material gradients only; roughness moves with the forward
+    # t's rounding on every non-xla route (ROADMAP queue 3)
+    grad_parity(sm, "scene3", scene, {
+        "mxu": (*tight, MATERIAL_GRADS, {}),
+        "wavefront2": (*tight, MATERIAL_GRADS, {"bands": 4})})
+
+    params = extract_params(scene)
+    routes = (("mxu", {}), ("wavefront2", {"bands": 4}))
+    cfg = RenderConfig(width=MAIN_RES, height=MAIN_RES,
+                       max_bounces=MAIN_BOUNCES, draw_environment=True)
+    cam = Camera().spec(MAIN_RES, MAIN_RES)
+    for route, kw in routes:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            loss = render_loss(params, scene, cam, target_full, 1, cfg,
+                               backend=route, remat=False, **kw)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        fwd_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, g = loss_and_grad(params, scene, cam, target_full, 1, cfg,
+                                backend=route, remat=False, **kw)
+        torch.cuda.synchronize()
+        fb_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        finite = all(bool(torch.isfinite(t).all()) for t in g.tensors())
+        print(f"[grad] {route} {kw} scene3 {MAIN_RES}x{MAIN_RES} "
+              f"{MAIN_BOUNCES} bounces: loss={float(loss):.6f} "
+              f"forward_loss_ms={fwd_ms:.2f} (peak {fwd_mib:.0f} MiB) "
+              f"fwd+bwd_ms={fb_ms:.2f} peak_mib={peak:.0f} "
+              f"grads_finite={finite}", flush=True)
+        sm.check(finite and bool(torch.isfinite(loss)),
+                 f"grad {route} not finite")
+
+
+def phase_inverse(sm: Smoke, scene):
+    """inverse_render through the mxu route at the main path's shape."""
+    import dataclasses
+
+    import torch
+    from rtm_tpu_torch import Camera, RenderConfig, render_dispatch
+    from rtm_tpu_torch.diff import (InverseRenderConfig, extract_params,
+                                    inverse_render)
+
+    cfg = RenderConfig(width=MAIN_RES, height=MAIN_RES,
+                       max_bounces=MAIN_BOUNCES, draw_environment=True)
+    cam = Camera().spec(MAIN_RES, MAIN_RES)
+    true = extract_params(scene)
+    with torch.no_grad():
+        target = render_dispatch(scene, cam, 1, cfg, backend="mxu")
+    alb = true.albedo.clone()
+    alb[2] = torch.tensor([0.3, 0.6, 0.6], device=alb.device)
+    p0 = dataclasses.replace(true, albedo=alb)
+    mask = dataclasses.replace(p0.map(torch.zeros_like),
+                               albedo=torch.ones_like(alb))
+    opt = InverseRenderConfig(steps=INVERSE_STEPS, learning_rate=4e-2,
+                              remat=False, vary_seed=False, backend="mxu")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit, losses = inverse_render(scene, cam, target, cfg, opt,
+                                 init_params=p0, param_mask=mask)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    print(f"[inverse] scene3 {MAIN_RES}x{MAIN_RES} {MAIN_BOUNCES} bounces "
+          f"mxu: {INVERSE_STEPS} Adam steps in {sec:.2f} s, losses="
+          + ",".join(f"{v:.6e}" for v in losses)
+          + f" albedo[2]={[round(float(v), 4) for v in fit.albedo[2]]}",
+          flush=True)
+    sm.check(all(v == v for v in losses) and losses[-1] < losses[0],
+             f"inverse losses did not fall: {losses}")
 
 
 def main() -> int:
@@ -677,6 +1238,33 @@ def main() -> int:
               f"{tcfg.height} {tcfg.max_bounces} bounces: plain_ms="
               f"{trav_plain_ms:.3f} kernel_ms={tk_ms:.4f}", flush=True)
 
+    with sm.phase("sweep-compare"):
+        wide, _ = build_scene(dragon_grid(grid_k))
+        bands = [(name, sc, record_bands(sc, COMPARE_RES, MAIN_BOUNCES))
+                 for name, sc in (("scene3", scene),
+                                  (f"dragon_grid{grid_k}", wide),
+                                  (f"dragon_grid{TRAV_GRID}", tscene))]
+        sweep_err = phase_sweep_compare(sm, bands)
+    with sm.phase("intersect-compare"):
+        isect_err = phase_intersect_compare(sm, bands)
+        del wide, bands
+    with sm.phase("wf2"):
+        (wcfg, wf2_ms, wf2_launches, wk_ms, wplain_ms, wb_ms, wb_by,
+         wf2_err) = phase_wf2(sm, tscene, tbuild_s)
+        sweep_err = max(sweep_err, wf2_err)
+        phase_wf2_vs_xla(sm, tscene)
+    with sm.phase("wf2-profile"):
+        phase_profile(tscene, wcfg, 2, wf2_ms, tag="wf2-profile",
+                      backend="wavefront2")
+    with sm.phase("pallas"):
+        (pal_ms, pal_launches, pk_ms, pplain_ms, pb_ms, pb_by,
+         pal_err) = phase_pallas(sm, scene, build_s, tscene)
+        isect_err = max(isect_err, pal_err)
+    with sm.phase("grad"):
+        phase_grad(sm, scene, img)
+    with sm.phase("inverse"):
+        phase_inverse(sm, scene)
+
     record = {"kernels": [{
         "name": "mxu_trace",
         "route": "cuda",
@@ -700,6 +1288,30 @@ def main() -> int:
         "plain_ms": trav_plain_ms,
         "bound_ms": tb_ms,
         "bound_by": tb_by,
+        "library_ms": None,
+    }, {
+        "name": "cluster_sweep",
+        "route": "cuda",
+        "source": "rtm_tpu_torch/csrc/cluster_sweep.cu",
+        "replaces": "rtm_tpu/ops/pallas/sweep_kernel.py:43",
+        "launches": wf2_launches,
+        "max_abs_err": sweep_err,
+        "ms": wk_ms,
+        "plain_ms": wplain_ms,
+        "bound_ms": wb_ms,
+        "bound_by": wb_by,
+        "library_ms": None,
+    }, {
+        "name": "intersect_sweep",
+        "route": "cuda",
+        "source": "rtm_tpu_torch/csrc/intersect_sweep.cu",
+        "replaces": "rtm_tpu/ops/pallas/intersect_kernel.py:92",
+        "launches": pal_launches,
+        "max_abs_err": isect_err,
+        "ms": pk_ms,
+        "plain_ms": pplain_ms,
+        "bound_ms": pb_ms,
+        "bound_by": pb_by,
         "library_ms": None,
     }]}
     print(f"[total] run_s={time.perf_counter() - run_t0:.2f}", flush=True)

@@ -7,11 +7,15 @@ rtm_tpu's Pallas TPU kernels becomes a hand-written CUDA kernel under
 `csrc/` with a plain PyTorch version beside it.  It never imports JAX or
 rtm_tpu.  Entry points run on the card unless the caller asks for the CPU
 (`build_tracer_scene(..., device="cpu")`), where the kernels' plain
-versions run.  Ported so far: the mxu forward path and the trav path for
-scenes beyond the mxu tables (see ROADMAP.md).
+versions run.  Ported so far: the mxu forward path, the trav path for
+scenes beyond the mxu tables, and the differentiable path (the XLA-style
+reference renderer, the wavefront2 and per-bounce `pallas` backends, mxu
+record replay, `loss_and_grad` / `inverse_render`; see ROADMAP.md).
 """
 
 from .config import RenderConfig
+from .diff import (InverseRenderConfig, SceneParams, apply_params,
+                   extract_params, inverse_render, loss_and_grad, render_loss)
 from .models.camera import Camera, CameraSpec
 from .models.material import Material, Materials
 from .models.mesh import Mesh, MeshInstance, Triangle

@@ -1,15 +1,15 @@
-"""Slot maps, camera packing and the texture/sky post-pass shared by the
-per-ray kernels.
+"""Slot maps, camera packing, the cluster tables and the texture/sky
+post-pass shared by the per-ray kernels.
 
-Port of the parts of rtm_tpu/ops/pallas/megakernel.py that the mxu and
-trav paths run: the constants, the 8x8-block dispatch-slot order
+Port of the parts of rtm_tpu/ops/pallas/megakernel.py that the mxu, trav
+and wavefront2 paths run: the constants, the 8x8-block dispatch-slot order
 (`use_block8`, `slot_to_xy`, `pixel_to_slot`, `image_to_slots`,
 `slots_to_image`),
-`_pack_camera`, and the post-pass (`mega_postpass`,
+`_pack_camera`, the cluster tables the sweep reads (`MegaPack`,
+`build_mega_pack`), and the post-pass (`mega_postpass`,
 `mega_postpass_dense`, `_seg_scan8`, `mega_postpass_compact`) as torch
-ops.  The megakernel itself (`_make_kernel`, `build_mega_pack`,
-`render_rays_megakernel`) is not ported yet: see ROADMAP.md, queue 1
-item 8.
+ops.  The megakernel itself (`_make_kernel`, `render_rays_megakernel`) is
+not ported yet: see ROADMAP.md, queue 1 item 8.
 
 The kernels defer the two texture-map consumers: they emit per-bounce
 records (emission-known terms, uv/texid) and per-sample miss records
@@ -19,14 +19,116 @@ record (RayTracing.shader:575-586 albedo chain, :663-666 sky at miss).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from ..intersect import cross3
 from ..shade import PI, TWO_PI, env_radiance, sample_texture_quads
 from .vreg_common import BIG  # noqa: F401  (re-exported kernel constant)
 
 CLUSTER = 128                   # triangles per cull cluster
 SEED_STRIDE = 735529            # shader:697
+
+
+# ---------------------------------------------------------------------------
+# Cluster tables (the parts of rtm_tpu's MegaPack the sweep reads)
+# ---------------------------------------------------------------------------
+
+class MegaPack(NamedTuple):
+    """Device-layout cluster tables of a scene.
+
+    Only what the cluster sweep reads (ops/kernels/sweep_kernel.py): the
+    16-feature rows, the cluster boxes and layout, and the padded-row ->
+    scene-row map.  rtm_tpu's MegaPack also holds the bf16 3-split
+    attribute table and the sphere table, the megakernel's one-hot
+    extraction inputs; they come with the megakernel (ROADMAP.md queue 1
+    item 8)."""
+
+    tri_feats: torch.Tensor | None   # (T', 16) f32, cluster-padded
+    boxes: torch.Tensor | None       # (C, 8) f32 [lo3, hi3, 0, 0]
+    n_clusters: int
+    # per-cluster (row offset, padded width) in the padded table: widths
+    # are 8-row multiples, variable under the SAH treelet cut
+    cluster_offsets: tuple = ()
+    cluster_widths: tuple = ()
+    offsets_dev: torch.Tensor | None = None   # (C,) i32, for the kernel
+    widths_dev: torch.Tensor | None = None    # (C,) i32
+    # (T',) i32 padded-table row -> scene triangle id, -1 for padding
+    padded_to_real: torch.Tensor | None = None
+
+    @property
+    def n_padded_tris(self) -> int:
+        return sum(self.cluster_widths)
+
+
+def build_mega_pack(scene) -> MegaPack:
+    """Pack the scene's triangles into the sweep's cluster tables, on the
+    scene's device and without autograd (the sweep is an argmin oracle).
+
+    Clusters follow the scene's SAH treelet cut when present (tight,
+    variable width), else fixed 128-triangle slices of the stored order.
+    Padding rows have n = 0, so det == 0 fails the gate."""
+    t = scene.num_triangles
+    dev = scene.device
+    if t == 0:
+        return MegaPack(None, None, 0)
+    slices = scene.cluster_slices or tuple(
+        (i * CLUSTER, min((i + 1) * CLUSTER, t))
+        for i in range(-(-t // CLUSTER)))
+    with torch.no_grad():
+        a = scene.tri_wa.detach()
+        b = scene.tri_wb.detach()
+        c = scene.tri_wc.detach()
+        ab = b - a
+        ac = c - a
+        n = cross3(ab, ac)
+        an = (a * n).sum(dim=-1)
+        g1 = cross3(ac, a)
+        g2 = cross3(ab, a)
+        feats = torch.stack([n[:, 0], n[:, 1], n[:, 2], an,
+                             ab[:, 0], ab[:, 1], ab[:, 2],
+                             ac[:, 0], ac[:, 1], ac[:, 2],
+                             g1[:, 0], g1[:, 1], g1[:, 2],
+                             g2[:, 0], g2[:, 1], g2[:, 2]], dim=1)  # (T,16)
+        verts = torch.stack([a, b, c], dim=1)
+        vmin = verts.amin(dim=1)
+        vmax = verts.amax(dim=1)
+
+        offs, widths = [], []
+        off = 0
+        for lo, hi in slices:
+            w_pad = max(8, -(-(hi - lo) // 8) * 8)
+            offs.append(off)
+            widths.append(w_pad)
+            off += w_pad
+        p2r = np.full(off, -1, np.int64)
+        for (lo, hi), o in zip(slices, offs):
+            p2r[o:o + hi - lo] = np.arange(lo, hi)
+        p2r_t = torch.from_numpy(p2r).to(dev)
+        real = (p2r_t >= 0)[:, None]
+        tri_feats = torch.where(real, feats[p2r_t.clamp(min=0)], 0.0)
+        lo_i = torch.tensor([s[0] for s in slices], device=dev)
+        hi_i = torch.tensor([s[1] for s in slices], device=dev)
+        seg = torch.repeat_interleave(torch.arange(len(slices), device=dev),
+                                      hi_i - lo_i)
+        rows = torch.cat([torch.arange(s[0], s[1]) for s in slices]).to(dev)
+        box_lo = torch.full((len(slices), 3), float("inf"), device=dev)
+        box_hi = torch.full((len(slices), 3), float("-inf"), device=dev)
+        box_lo = box_lo.scatter_reduce(0, seg[:, None].expand(-1, 3),
+                                       vmin[rows], "amin")
+        box_hi = box_hi.scatter_reduce(0, seg[:, None].expand(-1, 3),
+                                       vmax[rows], "amax")
+        boxes = torch.cat([box_lo, box_hi,
+                           torch.zeros((len(slices), 2), device=dev)], dim=1)
+    return MegaPack(
+        tri_feats=tri_feats.contiguous(), boxes=boxes.contiguous(),
+        n_clusters=len(slices), cluster_offsets=tuple(offs),
+        cluster_widths=tuple(widths),
+        offsets_dev=torch.tensor(offs, dtype=torch.int32, device=dev),
+        widths_dev=torch.tensor(widths, dtype=torch.int32, device=dev),
+        padded_to_real=p2r_t.to(torch.int32))
 
 
 # ---------------------------------------------------------------------------

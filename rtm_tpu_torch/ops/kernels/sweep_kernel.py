@@ -1,0 +1,198 @@
+"""Intersection-only cluster sweep: the kernel half of the sorted-wavefront
+renderer (ops/wavefront2.py).
+
+Port of rtm_tpu/ops/pallas/sweep_kernel.py, whose kernel body is
+megakernel.py `_tri_sweep`.  Input: an (8, Np) ray band [ox oy oz dx dy dz
+alive 0] (Np a multiple of the ray tile) and the scene's cluster tables
+(`MegaPack`: SAH treelet clusters of variable width).  Per ray tile (512
+slots) and cluster, the tile sweeps the cluster's rows when any ALIVE ray
+of it has its slab entry distance below its running best t.  Outputs: the
+ordering distance t, the winning row of the padded table (-1 on miss) and
+the cluster passes of each tile.
+
+Two implementations of one contract (`cluster_sweep`):
+  * the CUDA kernel (csrc/cluster_sweep.cu over csrc/tri_sweep.cuh), one
+    thread block per ray tile;
+  * the plain version `cluster_sweep_plain`, vectorised over rays with a
+    Python loop over clusters and the same tile-uniform skip.
+The wrapper takes the plain version only for CPU tensors.  `sweep_call`
+puts the sweep under autograd as rtm_tpu's zero-cotangent `custom_vjp`
+does: the sweep is an argmin oracle, the hit topology is detached, and the
+distance is recomputed differentiably by the caller.
+
+Ordering differs from rtm_tpu on purpose: the exact tdet / max(det, eps)
+where the TPU kernel multiplies by an approximate reciprocal (ROADMAP.md
+queue 3).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..intersect import DET_EPS
+from .build import check_arg, load_kernel_library
+from .megakernel import MegaPack
+from .vreg_common import BIG, _safe_inv_dirs
+
+DEFAULT_RAY_TILE = 512
+MAX_RAY_TILE = 1024      # threads per block
+
+
+def _slab_near(box, ox, oy, oz, inv_dx, inv_dy, inv_dz, miss=BIG):
+    """megakernel._slab_near: per-ray entry distance to the box [lo3, hi3]
+    (`miss` where the ray misses it; min and max propagate NaN)."""
+    t1x = (box[0] - ox) * inv_dx
+    t2x = (box[3] - ox) * inv_dx
+    t1y = (box[1] - oy) * inv_dy
+    t2y = (box[4] - oy) * inv_dy
+    t1z = (box[2] - oz) * inv_dz
+    t2z = (box[5] - oz) * inv_dz
+    tn = torch.maximum(torch.maximum(torch.minimum(t1x, t2x),
+                                     torch.minimum(t1y, t2y)),
+                       torch.minimum(t1z, t2z))
+    tf = torch.minimum(torch.minimum(torch.maximum(t1x, t2x),
+                                     torch.maximum(t1y, t2y)),
+                       torch.maximum(t1z, t2z))
+    return torch.where((tf >= 0.0) & (tn <= tf), tn, miss)
+
+
+def cluster_sweep_plain(feats, boxes, offsets: tuple, widths: tuple, state8,
+                        ray_tile: int = DEFAULT_RAY_TILE, cull: bool = True,
+                        with_passed: bool = False):
+    """Plain PyTorch version of the kernel: feats (T', 16), boxes (C, 8),
+    the cluster layout as Python tuples, state8 (8, Np).  Returns (t (Np,)
+    f32, BIG on miss, i_padded (Np,) i32, passes (Np / ray_tile,) i32), and
+    with_passed which clusters each tile swept (Np / ray_tile, C) bool."""
+    n = state8.shape[1]
+    dev = state8.device
+    tiles = n // ray_tile
+    ox, oy, oz, dx, dy, dz = (state8[k][:, None] for k in range(6))
+    alive = (state8[6] > 0.5)[:, None]
+    wx, wy, wz = oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx
+    inv = _safe_inv_dirs(dx, dy, dz)
+    best_t = torch.full((n, 1), BIG, device=dev)
+    best_i = torch.full((n, 1), -1, dtype=torch.int64, device=dev)
+    passes = torch.zeros(tiles, dtype=torch.int32, device=dev)
+    passed = torch.zeros((tiles, len(offsets)), dtype=torch.bool, device=dev)
+    for ci, (off, wdt) in enumerate(zip(offsets, widths)):
+        if cull:
+            near = _slab_near(boxes[ci], ox, oy, oz, *inv)
+            go = ((near < best_t) & alive).reshape(tiles, ray_tile).any(dim=1)
+            if not bool(go.any()):
+                continue
+            passes += go.to(torch.int32)
+            passed[:, ci] = go
+            lane_go = go.repeat_interleave(ray_tile)[:, None]
+        else:
+            passes += 1
+            passed[:, ci] = True
+            lane_go = None
+        f = feats[off:off + wdt].T                               # (16, W)
+        det = -(dx * f[0:1] + dy * f[1:2] + dz * f[2:3])
+        tdet = (ox * f[0:1] + oy * f[1:2] + oz * f[2:3]) - f[3:4]
+        udet = ((wx * f[7:8] + wy * f[8:9] + wz * f[9:10])
+                - (dx * f[10:11] + dy * f[11:12] + dz * f[12:13]))
+        vdet = ((dx * f[13:14] + dy * f[14:15] + dz * f[15:16])
+                - (wx * f[4:5] + wy * f[5:6] + wz * f[6:7]))
+        wdet = det - udet - vdet
+        m = torch.minimum(torch.minimum(det - DET_EPS, tdet),
+                          torch.minimum(torch.minimum(udet, vdet), wdet))
+        tt = torch.where(m >= 0.0, tdet / torch.clamp(det, min=DET_EPS), BIG)
+        cmin = tt.amin(dim=1, keepdim=True)
+        col = torch.arange(wdt, device=dev)[None, :]
+        cand = torch.where(tt == cmin, col, 2 ** 30).amin(dim=1, keepdim=True)
+        better = cmin < best_t
+        if lane_go is not None:
+            better = better & lane_go
+        best_t = torch.where(better, cmin, best_t)
+        best_i = torch.where(better, cand + off, best_i)
+    out = (best_t[:, 0], best_i[:, 0].to(torch.int32), passes)
+    return out + (passed,) if with_passed else out
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_P, _P, _P, _P, _I, _P, ctypes.c_long, _I, _I, _P, _P, _P, _P]
+
+
+def cluster_sweep(pack: MegaPack, state8, ray_tile: int = DEFAULT_RAY_TILE,
+                  cull: bool = True):
+    """The sweep of `cluster_sweep_plain`'s contract over `pack`'s tables.
+    CPU tensors go to the plain version; CUDA tensors launch the kernel of
+    csrc/cluster_sweep.cu (built at first use) and raise on arguments it
+    does not take and on any launch error.  `cluster_sweep.launches` counts
+    the kernel launches."""
+    dev = state8.device
+    if dev.type == "cpu":
+        return cluster_sweep_plain(pack.tri_feats, pack.boxes,
+                                   pack.cluster_offsets, pack.cluster_widths,
+                                   state8, ray_tile, cull)
+    if dev.type != "cuda":
+        raise ValueError(f"cluster_sweep: unsupported device {dev}")
+    if not (0 < ray_tile <= MAX_RAY_TILE and ray_tile % 32 == 0):
+        raise ValueError("cluster_sweep: ray_tile must be a multiple of 32 "
+                         f"in (0, {MAX_RAY_TILE}]; got {ray_tile}")
+    n = int(state8.shape[1]) if state8.dim() == 2 else -1
+    if n <= 0 or n % ray_tile:
+        raise ValueError(f"cluster_sweep: state8 must be (8, Np) with Np a "
+                         f"positive multiple of {ray_tile}; got "
+                         f"{tuple(state8.shape)}")
+    nc = pack.n_clusters
+    if nc <= 0:
+        raise ValueError("cluster_sweep: the scene has no triangles")
+    chk = lambda *a: check_arg("cluster_sweep", *a)  # noqa: E731
+    chk("state8", state8, torch.float32, (8, n), dev)
+    chk("tri_feats", pack.tri_feats, torch.float32, (pack.n_padded_tris, 16),
+        dev)
+    chk("boxes", pack.boxes, torch.float32, (nc, 8), dev)
+    chk("offsets", pack.offsets_dev, torch.int32, (nc,), dev)
+    chk("widths", pack.widths_dev, torch.int32, (nc,), dev)
+
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    passes = torch.empty(n // ray_tile, dtype=torch.int32, device=dev)
+    fn = load_kernel_library("cluster_sweep").cluster_sweep_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(pack.tri_feats.data_ptr(), pack.boxes.data_ptr(),
+                 pack.offsets_dev.data_ptr(), pack.widths_dev.data_ptr(), nc,
+                 state8.data_ptr(), n, ray_tile, int(bool(cull)),
+                 t.data_ptr(), idx.data_ptr(), passes.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"cluster_sweep: kernel launch failed with CUDA "
+                           f"error {err}")
+    cluster_sweep.launches += 1
+    return t, idx, passes
+
+
+cluster_sweep.launches = 0
+
+
+class _DetachedSweep(torch.autograd.Function):
+    """The sweep under autograd with zero cotangents
+    (rtm_tpu/ops/pallas/sweep_kernel.py:103-111): the winner index carries
+    no gradient, and neither does the ordering distance."""
+
+    @staticmethod
+    def forward(ctx, state8, pack, ray_tile, cull):
+        t, idx, passes = cluster_sweep(pack, state8.detach(), ray_tile, cull)
+        ctx.mark_non_differentiable(t, idx, passes)
+        return t, idx, passes
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return None, None, None, None
+
+
+def sweep_call(pack: MegaPack, state8, ray_tile: int = DEFAULT_RAY_TILE,
+               cull: bool = True):
+    """Run the sweep over an (8, Np) ray band (Np % ray_tile == 0).
+
+    Returns (t_approx (Np,) f32, i_padded (Np,) i32, n_passes (Np,) i32:
+    each lane carries its tile's cluster-pass count)."""
+    t, idx, passes = _DetachedSweep.apply(state8.contiguous(), pack,
+                                          ray_tile, cull)
+    return t, idx, passes.repeat_interleave(ray_tile)

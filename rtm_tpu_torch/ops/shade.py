@@ -1,16 +1,21 @@
-"""Shading: sky/texture sampling through the quad tables.
+"""Shading: sky/texture sampling and the XLA-style path's scatter.
 
-Reference device code: getSkyColor (RayTracing.shader:197-220) and the
-texture tap of accumulateColor (shader:575-580).  The quad tables are built
-on the host in NumPy (`build_quad_flat`); the samplers are torch functions
+Reference device code: getSkyColor (RayTracing.shader:197-220), scatter /
+reflectRay / refractRay / reflectance (shader:590-649), accumulateColor
+(shader:550-588).  The quad tables are built on the host in NumPy
+(`build_quad_flat`); the samplers and `scatter` are torch functions
 vectorised over a leading lane axis and run on whatever device the tables
-live on.  The scatter step of the kernels lives in
+live on, under autograd too (the texture tap carries gradients to u, v
+through its bilinear weights).  The kernels' scatter step lives in
 ops/kernels/vreg_common.py (and its CUDA twin in csrc/bounce_common.cuh).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import rng
+from .intersect import dot3, safe_normalize
 
 PI = float(np.float32(np.pi))
 TWO_PI = float(np.float32(2.0 * np.pi))
@@ -140,6 +145,94 @@ def sky_color_quads(direction, sky_quads, h: int, w: int):
     v = torch.asin(torch.clamp(direction[..., 1], -1.0 + 1e-6,
                                1.0 - 1e-6)) / PI + 0.5
     return sample_quads(sky_quads, h, w, u, v, wrap="clamp")
+
+
+def sphere_uv(normal):
+    """Sphere UV from the unit normal (shader:245)."""
+    u = torch.atan2(normal[..., 2], normal[..., 0]) / TWO_PI + 0.5
+    v = torch.asin(torch.clamp(normal[..., 1], -1.0 + 1e-6,
+                               1.0 - 1e-6)) / PI + 0.5
+    return u, v
+
+
+# ---------------------------------------------------------------------------
+# Scatter (the XLA-style path; the kernels' twin is vreg_common.scatter_step)
+# ---------------------------------------------------------------------------
+
+def reflect(d, n):
+    """GLSL reflect."""
+    return d - 2.0 * dot3(d, n)[..., None] * n
+
+
+def refract(i, n, eta):
+    """GLSL refract incl. the zero-vector total-internal-reflection result;
+    the square root's argument is floored so its gradient stays finite."""
+    ndi = dot3(n, i)[..., None]
+    k = 1.0 - eta[..., None] ** 2 * (1.0 - ndi * ndi)
+    out = (eta[..., None] * i
+           - (eta[..., None] * ndi + torch.sqrt(torch.clamp(k, min=1e-12)))
+           * n)
+    return torch.where(k >= 0.0, out, 0.0)
+
+
+def scatter(origin, direction, seed, hit_pos, hit_normal,
+            m_roughness, m_metallic, m_refraction):
+    """One scatter step for every lane; returns (new_origin, new_direction,
+    new_seed).  Lanes where refraction_ratio > 1 take the dielectric path
+    (1 RNG draw), others the diffuse/specular path (6 draws); both streams
+    are evaluated from the same incoming seed and masked, reproducing
+    per-thread SIMT seed evolution exactly (shader:637-649)."""
+    is_refract = m_refraction > 1.0
+
+    # --- dielectric branch (shader:590-624) -------------------------------
+    is_front = dot3(direction, hit_normal) < 0.0
+    rt = torch.where(is_front,
+                     1.0 / torch.where(m_refraction == 0.0, 1.0, m_refraction),
+                     m_refraction)
+    hn = torch.where(is_front[..., None], hit_normal, -hit_normal)
+    cos_theta = torch.clamp(dot3(-direction, hn), max=1.0)
+    # grad-safe sqrt: at exact normal incidence sqrt(0) has infinite slope,
+    # and this branch is evaluated (then masked) for every lane
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta,
+                                       min=1e-12))
+    cannot_refract = rt * sin_theta > 1.0
+    r0 = ((1.0 - rt) / (1.0 + rt)) ** 2
+    r0p = r0 + (1.0 - r0) * (1.0 - cos_theta) ** 5
+    rand_refl, seed_refr = rng.fast_random(seed)
+    do_reflect = cannot_refract | (r0p > rand_refl)
+    o_refr = torch.where(do_reflect[..., None], hit_pos + hn * OFFSET,
+                         hit_pos - hn * OFFSET)
+    d_refr = torch.where(do_reflect[..., None], reflect(direction, hn),
+                         refract(direction, hn, rt))
+
+    # --- diffuse/specular branch (shader:626-635) --------------------------
+    o_refl = hit_pos + hit_normal * OFFSET
+    r3a, s1 = rng.random_unit_sphere(seed)
+    diffuse_dir = safe_normalize(hit_normal + r3a)
+    r3b, s2 = rng.random_unit_sphere(s1)
+    spec_dir = safe_normalize(reflect(direction, hit_normal)
+                              + r3b * (1.0 - m_metallic)[..., None])
+    rough = m_roughness[..., None]
+    d_refl = safe_normalize(diffuse_dir * (1.0 - rough) + spec_dir * rough)
+
+    mask = is_refract[..., None]
+    new_origin = torch.where(mask, o_refr, o_refl)
+    new_direction = torch.where(mask, d_refr, d_refl)
+    new_seed = torch.where(is_refract, seed_refr, s2)
+    return new_origin, new_direction, new_seed
+
+
+FLAT_LIGHT_DIR = (np.array([-1.0, -1.0, -1.0], np.float32)
+                  / np.float32(np.sqrt(3.0)))
+
+
+def flat_shade(albedo, normal):
+    """MaxBounces==1 preview mode (shader:566-571).  The reference calls
+    clamp(0.0, 0.5, dot(-N, L)) with swapped min/max arguments, which in
+    GLSL resolves to min(0.5, dot(-N, L)); preserved exactly."""
+    light = torch.from_numpy(FLAT_LIGHT_DIR).to(normal.device)
+    d = dot3(-normal, light)
+    return albedo * (torch.clamp(d, max=0.5) + 0.5)[..., None]
 
 
 # ---------------------------------------------------------------------------

@@ -250,3 +250,195 @@ def test_trav_render_dispatch_on_the_card(cuda):
     diff = np.abs(got.cpu().numpy() - want.numpy()).max(axis=-1)
     assert diff.mean() <= 5e-3 and (diff > 2e-2).mean() <= 0.01
     assert (diff > 0.2).mean() <= 0.003
+
+
+# The cluster-sweep and intersect kernels.  Both compute the plain version's
+# f32 operations in the same order (--fmad=false, IEEE division), so the
+# winners agree on every lane of these bands; the bound kept is rtm_tpu's
+# own: >= 99.9% of (alive) lanes, per-tile passes equal on >= 99% of tiles.
+# The bands are the wavefront2 renderer's own: every bounce of one frame,
+# unsorted (sort_from=99), recorded as the sweep got them.
+SWEEP_SCENES = (2, 3, "grid11")
+
+
+def _bands(st, res=32, bounces=4):
+    from unittest import mock
+
+    from rtm_tpu_torch.ops import wavefront2 as wf2
+
+    cfg = rtm_tpu_torch.RenderConfig(width=res, height=res,
+                                     max_bounces=bounces,
+                                     draw_environment=True)
+    bands = []
+    sweep_call = wf2.sweep_call
+
+    def record(pack, state8, **kw):
+        bands.append(state8)
+        return sweep_call(pack, state8, **kw)
+
+    with mock.patch.object(wf2, "sweep_call", record):
+        wf2.render_rays_wavefront2(st, rtm_tpu_torch.Camera().spec(res, res),
+                                   1, cfg, pixel_offset=0, n_rays=res * res,
+                                   sort_from=99)
+    return bands
+
+
+@pytest.mark.parametrize("sid", SWEEP_SCENES)
+def test_cluster_sweep_kernel_matches_plain(cuda, sid):
+    from rtm_tpu_torch.ops.kernels import sweep_kernel as sk
+    from rtm_tpu_torch.ops.kernels.megakernel import build_mega_pack
+
+    st = _scene(sid, cuda)
+    pack = build_mega_pack(st)
+    bands = _bands(st)
+    assert bands
+    for state8 in bands:
+        before = sk.cluster_sweep.launches
+        t, i, passes = sk.cluster_sweep(pack, state8)
+        assert sk.cluster_sweep.launches == before + 1
+        pt, pi, pp = sk.cluster_sweep_plain(
+            pack.tri_feats, pack.boxes, pack.cluster_offsets,
+            pack.cluster_widths, state8)
+        torch.cuda.synchronize()
+        alive = state8[6] > 0.5
+        assert float((i == pi)[alive].float().mean()) >= AGREE_MIN
+        assert float((passes == pp).float().mean()) >= 0.99
+        same = (i == pi) & (i >= 0)
+        assert torch.equal(t[same], pt[same])
+
+
+@pytest.mark.parametrize("sid", SWEEP_SCENES)
+def test_intersect_kernel_matches_plain(cuda, sid):
+    from rtm_tpu_torch.ops.kernels import intersect_kernel as ik
+
+    st = _scene(sid, cuda)
+    feats, lo, hi, nc = ik.pack_triangle_features(st.tri_wa, st.tri_wb,
+                                                  st.tri_wc)
+    boxes = torch.cat([lo.T, hi.T, torch.zeros((2, nc), device=cuda)])
+    for state8 in _bands(st):
+        rays = ik.pack_rays(state8[0:3].T, state8[3:6].T)
+        before = ik.intersect_sweep.launches
+        t, i, passes = ik.intersect_sweep(rays, feats, boxes.contiguous(),
+                                          nc, return_passes=True)
+        assert ik.intersect_sweep.launches == before + 1
+        pt, pi, pp = ik.intersect_sweep_plain(rays, feats, boxes, nc,
+                                              return_passes=True)
+        torch.cuda.synchronize()
+        assert float((i == pi).float().mean()) >= AGREE_MIN
+        assert float((passes == pp).float().mean()) >= 0.99
+        same = i == pi
+        assert torch.allclose(t[same], pt[same], rtol=1e-6, atol=0.0)
+
+
+def test_sweep_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from rtm_tpu_torch.ops.kernels import intersect_kernel as ik
+    from rtm_tpu_torch.ops.kernels import sweep_kernel as sk
+    from rtm_tpu_torch.ops.kernels.megakernel import build_mega_pack
+
+    st = _scene(3, cuda)
+    pack = build_mega_pack(st)
+    state8 = torch.zeros((8, 512), device=cuda)
+    before = sk.cluster_sweep.launches
+    for bad in (state8.double(), state8[:, :500],
+                torch.zeros((512, 8), device=cuda).T):
+        with pytest.raises(ValueError, match="state8"):
+            sk.cluster_sweep(pack, bad)
+    with pytest.raises(ValueError, match="ray_tile"):
+        sk.cluster_sweep(pack, state8, ray_tile=500)
+    for name, field, bad in (
+            ("tri_feats", "tri_feats", pack.tri_feats.double()),
+            ("boxes", "boxes", pack.boxes.cpu()),
+            ("offsets", "offsets_dev", pack.offsets_dev.long()),
+            ("widths", "widths_dev", pack.widths_dev[:-1])):
+        with pytest.raises(ValueError, match=name):
+            sk.cluster_sweep(pack._replace(**{field: bad}), state8)
+    assert sk.cluster_sweep.launches == before
+
+    feats, lo, hi, nc = ik.pack_triangle_features(st.tri_wa, st.tri_wb,
+                                                  st.tri_wc)
+    boxes = torch.cat([lo.T, hi.T, torch.zeros((2, nc), device=cuda)])
+    rays = torch.zeros((256, 16), device=cuda)
+    before = ik.intersect_sweep.launches
+    for name, args in (("rays", (rays[:200], feats, boxes)),
+                       ("rays", (rays.double(), feats, boxes)),
+                       ("feats", (rays, feats.T, boxes)),
+                       ("boxes", (rays, feats, boxes.cpu()))):
+        with pytest.raises(ValueError, match=name):
+            ik.intersect_sweep(*args, nc)
+    assert ik.intersect_sweep.launches == before
+
+
+@pytest.mark.parametrize("backend", ["wavefront2", "pallas"])
+@pytest.mark.parametrize("sid", [1, 3, "grid11"])
+def test_sweep_render_dispatch_on_the_card(cuda, backend, sid):
+    """render_dispatch(backend=...) on a CUDA scene launches its kernel (once
+    per bounce; never for a scene without triangles) and its frame matches
+    the same scene rendered on the CPU through the plain version."""
+    from rtm_tpu_torch.ops.kernels import intersect_kernel as ik
+    from rtm_tpu_torch.ops.kernels import sweep_kernel as sk
+
+    counter = sk.cluster_sweep if backend == "wavefront2" \
+        else ik.intersect_sweep
+    w = h = 32
+    cfg = rtm_tpu_torch.RenderConfig(width=w, height=h, max_bounces=4,
+                                     draw_environment=True)
+    cam = rtm_tpu_torch.Camera().spec(w, h)
+    st = _scene(sid, cuda)
+    before = counter.launches
+    got = rtm_tpu_torch.render_dispatch(st, cam, 2, cfg, backend=backend)
+    assert got.device.type == "cuda" and torch.isfinite(got).all()
+    launched = counter.launches - before
+    assert launched == (cfg.max_bounces if st.num_triangles else 0)
+    want = rtm_tpu_torch.render_dispatch(_scene(sid, "cpu"), cam, 2, cfg,
+                                         backend=backend)
+    diff = np.abs(got.cpu().numpy() - want.numpy()).max(axis=-1)
+    assert diff.mean() <= 5e-3 and (diff > 2e-2).mean() <= 0.01
+    assert (diff > 0.2).mean() <= 0.003
+
+
+def _grad_rig(device):
+    """tests/test_grad.py's `_scene()`: two materials, three spheres and one
+    triangle, no shared triangle edges, so the kernel and its plain version
+    record the same winners."""
+    from rtm_tpu_torch import (Material, Mesh, MeshInstance, Scene,
+                               SphereDef, Triangle)
+    from rtm_tpu_torch.models import scenes
+
+    s = Scene(sky=scenes._procedural_sky())
+    s.add_material(Material((0.7, 0.4, 0.2), (1, 1, 1), 0.3, 0.2, 0, 1.0, -1))
+    s.add_material(Material((1, 1, 1), (0.9, 0.8, 0.7), 0, 0, 2.0, 1.0, -1))
+    s.add_sphere(SphereDef((0, 0, -2.5), 1.0, 0))
+    s.add_sphere(SphereDef((0, -101, -2), 100.0, 0))
+    s.add_sphere(SphereDef((1.5, 2.0, -2.0), 0.8, 1))
+    s.add_mesh(Mesh.from_triangles([
+        Triangle((-2.5, -0.8, -4), (2.5, -0.8, -4), (0, 2.5, -4))]))
+    s.add_object(MeshInstance(mesh_id=0, material_id=0))
+    return rtm_tpu_torch.build_tracer_scene(s, device=device)
+
+
+def test_mxu_grad_on_the_card_matches_the_cpu(cuda):
+    """loss_and_grad(backend="mxu") on the card (the mxu kernel's records,
+    the replay's gather backward as atomic adds) against the same scene on
+    the CPU (the plain version): every gradient finite, within rtol 1e-3 /
+    atol 1e-5 (rtm_tpu's grad tolerance, tests/test_grad.py)."""
+    from rtm_tpu_torch.diff import extract_params, loss_and_grad
+
+    w, h = 24, 20
+    cfg = rtm_tpu_torch.RenderConfig(width=w, height=h, max_bounces=3,
+                                     draw_environment=True)
+    cam = rtm_tpu_torch.Camera().spec(w, h)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        st = _grad_rig(dev)
+        target = torch.zeros((h, w, 3), device=dev)
+        before = tmk.mxu_trace.launches
+        loss, g = loss_and_grad(extract_params(st), st, cam, target, 1, cfg,
+                                backend="mxu", remat=False)
+        assert tmk.mxu_trace.launches == before + (dev.type == "cuda")
+        out.append((loss, g))
+    (lk, gk), (lp, gp) = out
+    assert torch.allclose(lk.cpu(), lp, rtol=1e-4)
+    for name in gk.fields():
+        a, b = getattr(gk, name).cpu(), getattr(gp, name)
+        assert torch.isfinite(a).all(), name
+        assert torch.allclose(a, b, rtol=1e-3, atol=1e-5), name

@@ -1,6 +1,8 @@
 """rtm_tpu_torch's full-frame entry points vs rtm_tpu's, and the port's
 rules: entry points on the card unless the caller asks for the CPU, loud
-errors for everything not ported yet, and no import of JAX.
+errors for everything not ported yet, and no import of JAX.  (The xla,
+pallas and wavefront2 frames are held against rtm_tpu in
+test_torch_intersect.py and test_torch_wavefront2.py.)
 
 The port's `render_dispatch(backend="auto")` and `render_progressive` run
 on a CPU scene (the kernel's plain version plus the post-pass) against
@@ -133,19 +135,31 @@ def test_auto_backend_resolution():
 @pytest.mark.parametrize("backend", ["xla", "pallas", "megakernel",
                                      "wavefront2"])
 def test_unported_backends_raise(backend):
+    """What each backend does not carry yet raises NotImplementedError
+    naming its ROADMAP item: the megakernel (item 8) for 'megakernel', and
+    for the ported per-bounce and wavefront backends the soft primary
+    visibility loss (item 10)."""
     st = _port_scene(2)
     _, cfg = _cfgs(16, 16, 3)
+    cam = rtm_tpu_torch.Camera().spec(16, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        rtm_tpu_torch.render_dispatch(st, rtm_tpu_torch.Camera().spec(16, 16),
-                                      1, cfg, backend=backend)
+        if backend == "megakernel":
+            rtm_tpu_torch.render_dispatch(st, cam, 1, cfg, backend=backend)
+        else:
+            rtm_tpu_torch.render_loss(
+                rtm_tpu_torch.extract_params(st), st, cam,
+                torch.zeros((16, 16, 3)), 1, cfg, backend=backend,
+                soft_tau=0.05)
 
 
 def test_unported_configurations_raise():
     st = _port_scene(2)
     cam = rtm_tpu_torch.Camera().spec(16, 16)
     _, flat = _cfgs(16, 16, 1)
-    with pytest.raises(NotImplementedError, match="flat-shade preview"):
-        rtm_tpu_torch.render_dispatch(st, cam, 1, flat)
+    with pytest.raises(NotImplementedError, match="soft primary visibility"):
+        rtm_tpu_torch.render_loss(rtm_tpu_torch.extract_params(st), st, cam,
+                                  torch.zeros((16, 16, 3)), 1, flat,
+                                  soft_tau=0.05)
     _, cfg = _cfgs(16, 16, 3)
     beyond = dataclasses.replace(
         st, mxu_meta=st.mxu_meta._replace(supported=False),
@@ -192,7 +206,10 @@ def test_port_never_imports_jax():
     assert len(files) > 20
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"rtm_tpu_torch/accel/trav.py",
-            "rtm_tpu_torch/ops/kernels/trav_kernel.py"} <= names
+            "rtm_tpu_torch/ops/kernels/trav_kernel.py",
+            "rtm_tpu_torch/ops/kernels/sweep_kernel.py",
+            "rtm_tpu_torch/ops/wavefront2.py",
+            "rtm_tpu_torch/diff/inverse.py"} <= names
     banned = ("jax", "jaxlib", "ml_dtypes", "rtm_tpu")
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imported_modules(f)
