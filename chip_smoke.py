@@ -12,13 +12,15 @@ which resolves to the mxu kernel.  It also renders the widest scene the
 mxu tables take (`dragon_grid`, <= 2047 triangles), the trav path:
 `dragon_grid(56)` (62,720 triangles), which auto resolves to the trav
 kernel, at the same size, the wavefront2 path (cluster-sweep kernel) on
-that scene, the pallas path (intersect kernel) on scene 3, and the
+that scene, the pallas path (intersect kernel) on scene 3, the
 differentiable path: `loss_and_grad` through the mxu record replay and
-wavefront2, and a few `inverse_render` steps.
+wavefront2, and a few `inverse_render` steps, the megakernel path (scene 3,
+`dragon_grid(56)` and a textured `dragon_grid(16)` that auto sends to it),
+and the `python -m rtm_tpu_torch` command line.
 
 Phases (each prints lines starting with its tag, and its seconds):
   [card]    nvidia-smi name and power limit, torch and CUDA versions
-  [build]   nvcc build time (both kernels, built in parallel) and ptxas
+  [build]   nvcc build time (all five kernels, built in parallel) and ptxas
             register report
   [compare] mxu kernel vs plain version at 64x64, 4 bounces, 1 and 2
             frames: hitrec agreement >= 0.999, max abs error of color /
@@ -73,6 +75,30 @@ Phases (each prints lines starting with its tag, and its seconds):
             forward-loss ms, fwd+bwd ms, peak device memory, finite grads
   [inverse] inverse_render on scene 3 at 512x512 through "mxu": 5 Adam steps
             from a perturbed wall albedo (albedo only); the loss must fall
+  [mega-compare] the megakernel vs its plain version at 64x64, 4 bounces:
+            scene 3 (static and nearest-first order), scene 2 (2 frames)
+            and dragon_grid(10) (static, nearest-first, cull off): >= 0.999
+            of lanes agree on color, miss and rec within 1e-3, the winners
+            on >= 0.999 of live lanes, per-tile-bounce cluster passes on
+            >= 0.99, images within `images_close`
+  [mega]    scene 3, 512x512, 8 bounces, backend="megakernel": 2 warm-up +
+            16 timed frames; ms/frame, the kernel's and the post-pass's own
+            time, launches, and frame 1 against the mxu path's frame 1 by
+            images_close; [mega-profile] the device idle share
+  [mega-plain] the plain version at the [mega] shape: its time, its outputs
+            held against the kernel's on every lane by the [mega-compare]
+            criteria, and the kernel's bound from its work counts
+  [mega-big] dragon_grid(56) (768 clusters), backend="megakernel": ms/frame,
+            kernel ms, cluster passes per tile-bounce, the plain version's
+            time and agreement and the bound, and frame 1 against the trav
+            path's by images_close; [mega-big-profile]
+  [mega-auto] a textured dragon_grid(16) (5120 textured triangles, beyond
+            the mxu and trav tables), backend="auto" resolves to the
+            megakernel; ms/frame, kernel ms, the plain version's time,
+            agreement and bound, frame 1 against the wavefront2 path's by
+            images_close; [mega-auto-profile]
+  [cli]     `python -m rtm_tpu_torch render --backend megakernel` as a
+            subprocess: exit 0 and a PNG
   [total]   the whole run's seconds
 
 The line before the last is the card's `nvidia-smi` name and power limit;
@@ -119,6 +145,19 @@ SWEEP_PAIR_OPS = 45
 STRICT_PAIR_OPS = 43
 SLAB_OPS = 25
 WF2_TIMED = 8
+# FP32 / INT32 operations per alive ray-bounce of the megakernel outside its
+# sweep: one sphere test per padded sphere (csrc/bounce_common.cuh
+# sphere_nearest: 3 subtractions, a 5, b 6, c 7, delta 4, sqrt, division,
+# 3 compares) and the shading tail (csrc/mega_trace.cu: exact t 12, hit
+# point 6, material mix 36, sphere normal 10, uv 45, records and
+# contribution 20) with the scatter and its PCG draws (scatter_step ~170)
+SPHERE_OPS = 30
+SHADE_OPS = 300
+MEGA_WARM, MEGA_TIMED = 2, 16
+MEGA_BIG_TIMED = 8
+MEGA_AUTO_GRID = 16          # textured dragon_grid(16): 5120 triangles
+MEGA_IMAGE_BOUND = "images_close: mean diff <= 5e-3, <= 1% of pixels off " \
+    "by > 2e-2, <= 0.3% by > 0.2"
 PALLAS_TIMED = 4
 PALLAS_BUDGET_S = 5.0        # one dragon_grid(56) pallas frame at most
 GRAD_RES = 64                # route-vs-route gradient check
@@ -430,12 +469,31 @@ def build_scene(host_scene):
 def path_kernels():
     """backend -> the wrapper of the kernel that backend's path launches."""
     from rtm_tpu_torch.ops.kernels.intersect_kernel import intersect_sweep
+    from rtm_tpu_torch.ops.kernels.megakernel import mega_trace
     from rtm_tpu_torch.ops.kernels.mxu_kernel import mxu_trace
     from rtm_tpu_torch.ops.kernels.sweep_kernel import cluster_sweep
     from rtm_tpu_torch.ops.kernels.trav_kernel import trav_trace
 
-    return {"mxu": mxu_trace, "trav": trav_trace,
+    return {"mxu": mxu_trace, "trav": trav_trace, "megakernel": mega_trace,
             "wavefront2": cluster_sweep, "pallas": intersect_sweep}
+
+
+def dispatch_route(scene, cfg, backend: str) -> str:
+    """The backend render_dispatch takes for `backend` on this scene: auto
+    resolution, then the table-limit fallbacks mxu -> trav -> megakernel
+    (megakernel_fits) -> wavefront2, as ops/trace_ref.py runs them."""
+    from rtm_tpu_torch.ops.kernels.megakernel import megakernel_fits
+    from rtm_tpu_torch.ops.trace_ref import auto_backend
+
+    route = (auto_backend(scene, scene.device.type) if backend == "auto"
+             else backend)
+    if route == "mxu" and not scene.mxu_meta.supported:
+        route = "trav"
+    if route == "trav" and not scene.trav_meta.supported:
+        route = "megakernel"
+    if route == "megakernel" and not megakernel_fits(scene, cfg):
+        route = "wavefront2"
+    return route
 
 
 def drive(sm: Smoke, tag: str, scene, build_s: float, frames_warm: int,
@@ -443,26 +501,25 @@ def drive(sm: Smoke, tag: str, scene, build_s: float, frames_warm: int,
           backend: str = "auto"):
     """Drive a path through the user entry points (render_progressive on a
     scene from build_tracer_scene, built in build_s host seconds; `backend`
-    "auto" must resolve to `backend_expected`); every launch count is set
-    to 0 just before the frames and read just after.  The fused kernels
+    must route to `backend_expected`); every launch count is set to 0
+    just before the frames and read just after.  The fused kernels
     launch once per frame, the sweep kernels once per bounce.  Returns
     (cfg, image, ms/frame, launches of the expected kernel)."""
     import torch
     from rtm_tpu_torch import Camera, RenderConfig, render_progressive
-    from rtm_tpu_torch.ops.trace_ref import auto_backend
 
     kernels = path_kernels()
     cfg = RenderConfig(width=MAIN_RES, height=MAIN_RES,
                        max_bounces=MAIN_BOUNCES, max_frames=1,
                        draw_environment=True, accumulate=True)
     cam = Camera().spec(cfg.width, cfg.height)
-    resolved = (auto_backend(scene, scene.device.type) if backend == "auto"
-                else backend)
+    resolved = dispatch_route(scene, cfg, backend)
     sm.check(scene.device.type == "cuda", f"{tag} scene not on the card")
     sm.check(resolved == backend_expected,
              f"{tag} {backend} resolved to {resolved}, not "
              f"{backend_expected}")
-    per_frame = 1 if backend_expected in ("mxu", "trav") else cfg.max_bounces
+    per_frame = (1 if backend_expected in ("mxu", "trav", "megakernel")
+                 else cfg.max_bounces)
 
     torch.cuda.synchronize()
     for k in kernels.values():
@@ -750,6 +807,18 @@ def phase_intersect_compare(sm: Smoke, scenes):
     return worst
 
 
+def real_rows(pack):
+    """(C,) f64: the real (non-padding) triangle rows of each cluster."""
+    import torch
+
+    cluster_of_row = torch.repeat_interleave(
+        torch.arange(pack.n_clusters, device=pack.boxes.device),
+        pack.widths_dev.long())
+    return torch.zeros(pack.n_clusters, dtype=torch.float64,
+                       device=pack.boxes.device).index_add_(
+        0, cluster_of_row, (pack.padded_to_real >= 0).double())
+
+
 def sweep_bound(pack, bands, passed):
     """(bound_ms, bound_by) of the cluster sweep over `bands` (one frame):
     each launch reads the tables and its band once and writes t, the row
@@ -758,22 +827,15 @@ def sweep_bound(pack, bands, passed):
     one pair test per (alive ray, real triangle row) of each cluster its
     tile passed (`passed`: the plain version's (tiles, C) pass matrices).
     Dead rays and padding rows feed no output the path reads."""
-    import torch
-
     tab_bytes = sum(x.numel() * x.element_size() for x in (
         pack.tri_feats, pack.boxes, pack.offsets_dev, pack.widths_dev))
-    cluster_of_row = torch.repeat_interleave(
-        torch.arange(pack.n_clusters, device=pack.boxes.device),
-        pack.widths_dev.long())
-    real_rows = torch.zeros(pack.n_clusters, dtype=torch.float64,
-                            device=pack.boxes.device).index_add_(
-        0, cluster_of_row, (pack.padded_to_real >= 0).double())
+    rows = real_rows(pack)
     byts = ops = 0.0
     for state8, pm in zip(bands, passed):
         n, tiles = state8.shape[1], pm.shape[0]
         alive = (state8[6] > 0.5).reshape(tiles, -1).sum(dim=1).double()
         byts += tab_bytes + state8.numel() * 4 + n * 8 + tiles * 4
-        ops += (float((alive * (pm.double() @ real_rows)).sum())
+        ops += (float((alive * (pm.double() @ rows)).sum())
                 * SWEEP_PAIR_OPS
                 + float(alive.sum()) * pack.n_clusters * SLAB_OPS)
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
@@ -1091,6 +1153,261 @@ def phase_inverse(sm: Smoke, scene):
              f"inverse losses did not fall: {losses}")
 
 
+def mega_bound(scene, pack, cfg, stats, n: int):
+    """(bound_ms, bound_by) of one timed mega_trace call: the tables read
+    once and the color / miss / rec rows written once at the HBM rate,
+    against the work this run's data needs at the FP32 rate: one slab test
+    per (alive ray-bounce, cluster), one pair test per (alive ray-bounce,
+    real triangle row) of each cluster its tile swept, and the sphere tests
+    and shading of each alive ray-bounce (`stats`: the plain version's
+    MegaStats on the same inputs).  Dead rays feed no output the path
+    reads."""
+    import torch
+    from rtm_tpu_torch.ops.kernels.megakernel import DEFAULT_RAY_TILE
+
+    in_bytes = 64 * 4 + sum(t.numel() * t.element_size() for t in (
+        pack.tri_feats, pack.tri_attrs, pack.boxes, pack.offsets_dev,
+        pack.widths_dev, pack.spheres) if t is not None)
+    out_rows = 3 + 8 * cfg.max_frames + (
+        8 * cfg.max_frames * cfg.max_bounces if scene.any_textured else 0)
+    t_bytes = (in_bytes + out_rows * n * 4) / HBM_BYTES_PER_S * 1e3
+    fb, tiles = stats.passes.shape
+    alive = torch.nn.functional.pad(stats.alive.double(),
+                                    (0, tiles * DEFAULT_RAY_TILE - n))
+    alive_tile = alive.view(fb, tiles, -1).sum(dim=2)         # (FB, tiles)
+    live = float(alive.sum())
+    ops = live * (pack.n_spheres_padded * SPHERE_OPS + SHADE_OPS)
+    if pack.n_clusters:
+        ops += (float((alive_tile * (stats.passed.double()
+                                     @ real_rows(pack))).sum())
+                * SWEEP_PAIR_OPS + live * pack.n_clusters * SLAB_OPS)
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def mega_agreement(sm: Smoke, label: str, scene, cfg, k, p) -> float:
+    """Check one mega_trace output `k` (with stats) against
+    mega_trace_plain's `p` (with stats, same inputs): >= AGREE_MIN of lanes
+    agree on color, miss and rec within MAX_ABS_ERR (every lane, dead ones
+    too), the winners on >= AGREE_MIN of the live (slot, bounce) records,
+    per-tile-bounce cluster passes on >= TILE_AGREE_MIN, and the
+    post-passed images pass images_close and are finite.  Returns the max
+    abs error over all lanes."""
+    import torch
+    from rtm_tpu_torch.ops.kernels.megakernel import (mega_postpass,
+                                                      slots_to_image)
+
+    n = cfg.width * cfg.height
+    diff = torch.zeros(n, device=k[0].device)
+    for a, b in zip(k[:3], p[:3]):
+        if a is not None:
+            diff = torch.maximum(diff, (a - b).abs().amax(dim=0))
+    lanes = float((diff <= MAX_ABS_ERR).float().mean())
+    live = p[3].alive
+    winners = (float((k[3].winners == p[3].winners)[live].float().mean())
+               if live.any() else 1.0)
+    tiles = float((k[3].passes == p[3].passes).float().mean())
+    imgs = [slots_to_image(mega_postpass(o[0].T, o[1], o[2], scene, cfg, n),
+                           cfg.width, cfg.height).cpu() for o in (k, p)]
+    msg = images_close(imgs[0].numpy(), imgs[1].numpy())
+    finite = bool(torch.isfinite(imgs[0]).all())
+    err = float(diff.max())
+    print(f"{label} tris={scene.num_triangles} clusters="
+          f"{p[3].passed.shape[2]} {cfg.width}x"
+          f"{cfg.height} bounces={cfg.max_bounces} frames={cfg.max_frames} "
+          f"lanes_agree={lanes:.6f} live_winners_agree={winners:.6f} "
+          f"tile_passes_equal={tiles:.4f} "
+          f"passes/tile-bounce={float(k[3].passes.float().mean()):.3f} "
+          f"max_abs_err={err:.3e} images_close="
+          f"{'ok' if msg is None else msg}", flush=True)
+    what = f"{label} f{cfg.max_frames}"
+    sm.check(lanes >= AGREE_MIN, f"{what} lanes agree {lanes} < {AGREE_MIN}")
+    sm.check(winners >= AGREE_MIN, f"{what} live winners agree {winners}")
+    sm.check(tiles >= TILE_AGREE_MIN, f"{what} tile passes agree {tiles}")
+    sm.check(msg is None and finite, f"{what} images: {msg}, finite={finite}")
+    return err
+
+
+def mega_pair(scene, cfg, order: str = "static", cull: bool = True):
+    """(kernel outputs, plain outputs, plain ms by CUDA events, pack, camf)
+    of one frame-1 dispatch of the whole frame, both with stats."""
+    import torch
+    from rtm_tpu_torch import Camera
+    from rtm_tpu_torch.ops.kernels.megakernel import (_pack_camera,
+                                                      build_mega_pack,
+                                                      mega_trace,
+                                                      mega_trace_plain)
+
+    n = cfg.width * cfg.height
+    pack = build_mega_pack(scene)
+    camf = _pack_camera(Camera().spec(cfg.width, cfg.height), scene.device)
+    k = mega_trace(scene, pack, camf, 1, 0, n, cfg, cull=cull, order=order,
+                   with_stats=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    p = mega_trace_plain(scene, pack, camf, 1, 0, n, cfg, cull=cull,
+                         order=order, with_stats=True)
+    end.record()
+    torch.cuda.synchronize()
+    return k, p, start.elapsed_time(end), pack, camf
+
+
+def phase_mega_compare(sm: Smoke, cases):
+    """The megakernel vs its plain version on (name, scene, frames, cull,
+    order) cases at COMPARE_RES, COMPARE_BOUNCES; returns the max abs
+    error."""
+    from rtm_tpu_torch import RenderConfig
+
+    worst = 0.0
+    for name, scene, frames, cull, order in cases:
+        cfg = RenderConfig(width=COMPARE_RES, height=COMPARE_RES,
+                           max_bounces=COMPARE_BOUNCES, max_frames=frames,
+                           draw_environment=True)
+        k, p, _, _, _ = mega_pair(scene, cfg, order, cull)
+        worst = max(worst, mega_agreement(
+            sm, f"[mega-compare] {name} order={order} cull={cull}", scene,
+            cfg, k, p))
+    return worst
+
+
+def frame1_vs(sm: Smoke, tag: str, scene, cfg, other: str):
+    """Frame 1 of the megakernel path against frame 1 of `other` on the
+    same scene, by images_close."""
+    import torch
+    from rtm_tpu_torch import Camera, render_dispatch
+
+    cam = Camera().spec(cfg.width, cfg.height)
+    with torch.no_grad():
+        a = render_dispatch(scene, cam, 1, cfg, backend="megakernel")
+        b = render_dispatch(scene, cam, 1, cfg, backend=other)
+    msg = images_close(a.cpu().numpy(), b.cpu().numpy())
+    d = (a - b).abs().amax(dim=-1)
+    print(f"[{tag}] frame 1 vs the {other} path: images_close="
+          f"{'ok' if msg is None else msg} (bound: {MEGA_IMAGE_BOUND}); "
+          f"frac_off_2e-2={float((d > 2e-2).float().mean()):.5f} "
+          f"frac_off_0.2={float((d > 0.2).float().mean()):.5f}", flush=True)
+    sm.check(msg is None, f"{tag} frame 1 vs {other}: {msg}")
+
+
+def mega_kernel_and_postpass_ms(scene, pack, camf, cfg, reps: int):
+    """Device time of one mega_trace launch (pack built once, so the
+    launches queue back to back) and of one post-pass on its outputs."""
+    from rtm_tpu_torch.ops.kernels.megakernel import mega_postpass, mega_trace
+
+    n = cfg.width * cfg.height
+    k_ms = cuda_ms(lambda: mega_trace(scene, pack, camf, 1, 0, n, cfg), reps)
+    color, miss, rec, _ = mega_trace(scene, pack, camf, 1, 0, n, cfg)
+    p_ms = cuda_ms(lambda: mega_postpass(color.T, miss, rec, scene, cfg, n),
+                   reps)
+    return k_ms, p_ms
+
+
+def phase_mega(sm: Smoke, scene, build_s: float):
+    """The megakernel path on scene 3 at the main shape, then [mega-plain]:
+    the plain version on the same inputs, held against the kernel, and the
+    bound.  Returns (cfg, ms/frame, launches, kernel ms, plain ms, bound
+    ms, bound by, max abs error)."""
+    cfg, _, ms, launches = drive(sm, "mega", scene, build_s, MEGA_WARM,
+                                 MEGA_TIMED, backend_expected="megakernel",
+                                 backend="megakernel")
+    k, p, plain_ms, pack, camf = mega_pair(scene, cfg)
+    k_ms, p_ms = mega_kernel_and_postpass_ms(scene, pack, camf, cfg, 10)
+    n = cfg.width * cfg.height
+    bound_ms, bound_by = mega_bound(scene, pack, cfg, p[3], n)
+    print(f"[mega] clusters={pack.n_clusters} kernel_ms={k_ms:.4f} "
+          f"postpass_ms={p_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
+          f"live_ray-bounces={int(p[3].alive.sum())}", flush=True)
+    frame1_vs(sm, "mega", scene, cfg, "mxu")
+    err = mega_agreement(sm, "[mega-plain] scene3", scene, cfg, k, p)
+    print(f"[mega-plain] scene3 {cfg.width}x{cfg.height} {cfg.max_bounces} "
+          f"bounces: plain_ms={plain_ms:.3f} kernel_ms={k_ms:.4f}",
+          flush=True)
+    return cfg, ms, launches, k_ms, plain_ms, bound_ms, bound_by, err
+
+
+def phase_mega_big(sm: Smoke, scene, build_s: float):
+    """The megakernel on the [trav] scene (768 clusters): drive, the kernel
+    and post-pass times, the plain version's time, agreement and bound,
+    and frame 1 against the trav path's.  Returns (cfg, ms/frame)."""
+    cfg, _, ms, _ = drive(sm, "mega-big", scene, build_s, 1, MEGA_BIG_TIMED,
+                          backend_expected="megakernel",
+                          backend="megakernel")
+    k, p, plain_ms, pack, camf = mega_pair(scene, cfg)
+    k_ms, p_ms = mega_kernel_and_postpass_ms(scene, pack, camf, cfg, 3)
+    n = cfg.width * cfg.height
+    bound_ms, bound_by = mega_bound(scene, pack, cfg, p[3], n)
+    print(f"[mega-big] clusters={pack.n_clusters} kernel_ms={k_ms:.4f} "
+          f"postpass_ms={p_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
+          f"plain_ms={plain_ms:.3f} "
+          f"live_ray-bounces={int(p[3].alive.sum())}", flush=True)
+    mega_agreement(sm, f"[mega-big] dragon_grid{TRAV_GRID}", scene, cfg, k, p)
+    frame1_vs(sm, "mega-big", scene, cfg, "trav")
+    return cfg, ms
+
+
+def textured_grid(k: int):
+    """dragon_grid(k) with material 0 given scene 3's texture: every
+    triangle textured, beyond the mxu and trav tables' 128."""
+    from rtm_tpu_torch import load_scene
+    from rtm_tpu_torch.models.scenes import dragon_grid
+
+    s = dragon_grid(k)
+    s.textures = list(load_scene(3).textures)
+    s.materials[0].texture_id = 0
+    return s
+
+
+def phase_mega_auto(sm: Smoke):
+    """backend="auto" on a textured dragon_grid(MEGA_AUTO_GRID): resolves
+    to the megakernel; then the kernel and post-pass times, the plain
+    version's time, agreement and bound on the same frame, and frame 1
+    against the wavefront2 path's (the port's other route for a textured
+    scene beyond the tables).  Returns (scene, cfg, ms/frame)."""
+    scene, build_s = build_scene(textured_grid(MEGA_AUTO_GRID))
+    sm.check(not scene.mxu_meta.supported and not scene.trav_meta.supported,
+             "mega-auto scene fits the mxu or trav tables")
+    cfg, _, ms, _ = drive(sm, "mega-auto", scene, build_s, 1, 8,
+                          backend_expected="megakernel", backend="auto")
+    k, p, plain_ms, pack, camf = mega_pair(scene, cfg)
+    k_ms, p_ms = mega_kernel_and_postpass_ms(scene, pack, camf, cfg, 3)
+    bound_ms, bound_by = mega_bound(scene, pack, cfg, p[3],
+                                    cfg.width * cfg.height)
+    print(f"[mega-auto] clusters={pack.n_clusters} kernel_ms={k_ms:.4f} "
+          f"postpass_ms={p_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
+          f"plain_ms={plain_ms:.3f} "
+          f"live_ray-bounces={int(p[3].alive.sum())}", flush=True)
+    mega_agreement(sm, f"[mega-auto] textured dragon_grid{MEGA_AUTO_GRID}",
+                   scene, cfg, k, p)
+    frame1_vs(sm, "mega-auto", scene, cfg, "wavefront2")
+    return scene, cfg, ms
+
+
+def phase_cli(sm: Smoke):
+    """`python -m rtm_tpu_torch render --backend megakernel` as a user runs
+    it, in a subprocess: it must exit 0 and write a PNG."""
+    from rtm_tpu_torch.ops.kernels import build
+
+    out = build.BUILD_DIR / "chip_smoke_cli.png"
+    out.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "rtm_tpu_torch", "render", "--scene", "3",
+           "--backend", "megakernel", "--width", str(MAIN_RES), "--height",
+           str(MAIN_RES), "--bounces", str(MAIN_BOUNCES), "--frames", "4",
+           "--check-nans", "--out", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    sec = time.perf_counter() - t0
+    ok = (proc.returncode == 0 and out.exists()
+          and out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n")
+    print(f"[cli] {' '.join(cmd[1:6])} ... rc={proc.returncode} "
+          f"seconds={sec:.2f} png={'ok' if ok else 'missing'}: "
+          f"{proc.stdout.strip()} {proc.stderr.strip()[-300:]}", flush=True)
+    sm.check(ok, f"cli render rc={proc.returncode}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1265,6 +1582,38 @@ def main() -> int:
     with sm.phase("inverse"):
         phase_inverse(sm, scene)
 
+    with sm.phase("mega-compare"):
+        wide, _ = build_scene(dragon_grid(grid_k))
+        scene2, _ = build_scene(load_scene(2))
+        mega_err = phase_mega_compare(sm, [
+            ("scene3", scene, 1, True, "static"),
+            ("scene3", scene, 1, True, "near"),
+            ("scene2", scene2, 2, True, "static"),
+            (f"dragon_grid{grid_k}", wide, 1, True, "static"),
+            (f"dragon_grid{grid_k}", wide, 1, True, "near"),
+            (f"dragon_grid{grid_k}", wide, 1, False, "static")])
+        del wide, scene2
+    with sm.phase("mega"):
+        (mcfg, mega_ms, mega_launches, mk_ms, mplain_ms, mb_ms, mb_by,
+         err_m) = phase_mega(sm, scene, build_s)
+        mega_err = max(mega_err, err_m)
+    with sm.phase("mega-profile"):
+        phase_profile(scene, mcfg, 4, mega_ms, tag="mega-profile",
+                      backend="megakernel")
+    with sm.phase("mega-big"):
+        bcfg, big_ms = phase_mega_big(sm, tscene, tbuild_s)
+    with sm.phase("mega-big-profile"):
+        phase_profile(tscene, bcfg, 2, big_ms, tag="mega-big-profile",
+                      backend="megakernel")
+        del tscene
+    with sm.phase("mega-auto"):
+        ascene, acfg, auto_ms = phase_mega_auto(sm)
+    with sm.phase("mega-auto-profile"):
+        phase_profile(ascene, acfg, 2, auto_ms, tag="mega-auto-profile")
+        del ascene
+    with sm.phase("cli"):
+        phase_cli(sm)
+
     record = {"kernels": [{
         "name": "mxu_trace",
         "route": "cuda",
@@ -1312,6 +1661,18 @@ def main() -> int:
         "plain_ms": pplain_ms,
         "bound_ms": pb_ms,
         "bound_by": pb_by,
+        "library_ms": None,
+    }, {
+        "name": "mega_trace",
+        "route": "cuda",
+        "source": "rtm_tpu_torch/csrc/mega_trace.cu",
+        "replaces": "rtm_tpu/ops/pallas/megakernel.py:598",
+        "launches": mega_launches,
+        "max_abs_err": mega_err,
+        "ms": mk_ms,
+        "plain_ms": mplain_ms,
+        "bound_ms": mb_ms,
+        "bound_by": mb_by,
         "library_ms": None,
     }]}
     print(f"[total] run_s={time.perf_counter() - run_t0:.2f}", flush=True)

@@ -7,10 +7,12 @@ rtm_tpu's Pallas TPU kernels becomes a hand-written CUDA kernel under
 `csrc/` with a plain PyTorch version beside it.  It never imports JAX or
 rtm_tpu.  Entry points run on the card unless the caller asks for the CPU
 (`build_tracer_scene(..., device="cpu")`), where the kernels' plain
-versions run.  Ported so far: the mxu forward path, the trav path for
-scenes beyond the mxu tables, and the differentiable path (the XLA-style
-reference renderer, the wavefront2 and per-bounce `pallas` backends, mxu
-record replay, `loss_and_grad` / `inverse_render`; see ROADMAP.md).
+versions run.  Every Pallas kernel of rtm_tpu has its CUDA counterpart:
+the mxu forward path, the trav path and the megakernel for scenes beyond
+the mxu tables, and the differentiable path (the XLA-style reference
+renderer, the wavefront2 and per-bounce `pallas` backends, mxu record
+replay, `loss_and_grad` / `inverse_render`).  `python -m rtm_tpu_torch`
+is the command-line entry point; see ROADMAP.md for what is left.
 """
 
 from .config import RenderConfig

@@ -65,27 +65,9 @@ __global__ void cluster_sweep_kernel(const float* __restrict__ feats,
 
   float best_t = SWEEP_BIG;
   int best_i = -1;
-  int n_pass = 0;
-  for (int c = 0; c < nc; ++c) {
-    if (cull) {
-      const float* b = boxes + c * 8;
-      const float near = slab_near(__ldg(b + 0), __ldg(b + 1), __ldg(b + 2),
-                                   __ldg(b + 3), __ldg(b + 4), __ldg(b + 5), r,
-                                   inv_dx, inv_dy, inv_dz, SWEEP_BIG);
-      if (!__syncthreads_or(alive && near < best_t)) continue;
-    }
-    ++n_pass;
-    const int off = __ldg(offsets + c);
-    const int width = __ldg(widths + c);
-    for (int base = 0; base < width; base += STAGE) {
-      const int rows = min(STAGE, width - base);
-      __syncthreads();  // the previous stage's rows are no longer read
-      stage_rows(s_rows, feats + (long)(off + base) * NFEAT, rows, NFEAT, 1);
-      __syncthreads();
-      sweep_block<false>(s_rows, rows, off + base, r, SWEEP_BIG, best_t,
-                         best_i);
-    }
-  }
+  const int n_pass =
+      sweep_clusters(feats, boxes, offsets, widths, nc, cull != 0, r, alive,
+                     inv_dx, inv_dy, inv_dz, s_rows, best_t, best_i);
   t_out[slot] = best_t;
   i_out[slot] = best_i;
   if (threadIdx.x == 0) passes[blockIdx.x] = n_pass;

@@ -1,12 +1,13 @@
 // Nearest-triangle sweep over precomputed 16-feature triangle rows, shared by
 // the cluster-sweep kernel (cluster_sweep.cu), the intersect kernel
-// (intersect_sweep.cu) and, later, the megakernel.
+// (intersect_sweep.cu) and the megakernel (mega_trace.cu).
 //
 // __device__ counterpart of rtm_tpu/ops/pallas/megakernel.py `_tri_sweep`
 // (:414-485: the per-pair test with its min-chain validity gate, :446-458),
-// `_safe_inv_dirs` (:380) and `_slab_near` (:394), and of the round-1 test of
-// rtm_tpu/ops/pallas/intersect_kernel.py `_kernel` (:92-186).  The plain
-// versions are in rtm_tpu_torch/ops/kernels/{sweep_kernel,intersect_kernel}.py
+// `_tri_sweep_ordered` (:491-595), `_safe_inv_dirs` (:380) and `_slab_near`
+// (:394), and of the round-1 test of rtm_tpu/ops/pallas/intersect_kernel.py
+// `_kernel` (:92-186).  The plain versions are in
+// rtm_tpu_torch/ops/kernels/{megakernel,sweep_kernel,intersect_kernel}.py
 // and keep the same operation order; with --fmad=false each operation rounds
 // alike.
 //
@@ -156,6 +157,121 @@ __device__ __forceinline__ void sweep_block(const float* __restrict__ rows_sm,
       best_i = row0 + k;
     }
   }
+}
+
+// Sweep rows [off, off + width) of the (T', 16) feature table for this
+// thread's ray, staging STAGE rows at a time.  Every thread of the block
+// calls it (it holds barriers).
+__device__ __forceinline__ void sweep_cluster(const float* __restrict__ feats,
+                                              int off, int width,
+                                              const SweepRay& r,
+                                              float* __restrict__ s_rows,
+                                              float& best_t, int& best_i) {
+  for (int base = 0; base < width; base += STAGE) {
+    const int rows = min(STAGE, width - base);
+    __syncthreads();  // the previous stage's rows are no longer read
+    stage_rows(s_rows, feats + (long)(off + base) * NFEAT, rows, NFEAT, 1);
+    __syncthreads();
+    sweep_block<false>(s_rows, rows, off + base, r, SWEEP_BIG, best_t,
+                       best_i);
+  }
+}
+
+// The static-order sweep of one ray tile (one thread block) over the SAH
+// clusters (megakernel.py `_tri_sweep`): clusters in table order; with
+// `cull` the block sweeps a cluster only when an ALIVE ray of it enters the
+// cluster's box nearer than its best t (__syncthreads_or, the counterpart
+// of the TPU kernel's tile-uniform `pl.when`), and then every ray of the
+// block, dead ones too, sweeps it.  Returns the clusters swept.  Every
+// thread of the block calls it.
+__device__ __forceinline__ int sweep_clusters(
+    const float* __restrict__ feats, const float* __restrict__ boxes,
+    const int* __restrict__ offsets, const int* __restrict__ widths, int nc,
+    bool cull, const SweepRay& r, bool alive, float inv_dx, float inv_dy,
+    float inv_dz, float* __restrict__ s_rows, float& best_t, int& best_i) {
+  int n_pass = 0;
+  for (int c = 0; c < nc; ++c) {
+    if (cull) {
+      const float* b = boxes + c * 8;
+      const float near = slab_near(__ldg(b + 0), __ldg(b + 1), __ldg(b + 2),
+                                   __ldg(b + 3), __ldg(b + 4), __ldg(b + 5), r,
+                                   inv_dx, inv_dy, inv_dz, SWEEP_BIG);
+      if (!__syncthreads_or(alive && near < best_t)) continue;
+    }
+    ++n_pass;
+    sweep_cluster(feats, __ldg(offsets + c), __ldg(widths + c), r, s_rows,
+                  best_t, best_i);
+  }
+  return n_pass;
+}
+
+constexpr int KEY_LANES = 128;  // most clusters the nearest-first sweep takes
+
+// Shared scratch of the nearest-first sweep.
+struct NearScratch {
+  float wmin[KEY_LANES * 32];  // per (cluster, warp) least alive entry
+  float keys[KEY_LANES];
+  int order[KEY_LANES];
+};
+
+// The nearest-first sweep of one ray tile (megakernel.py
+// `_tri_sweep_ordered`), nc <= KEY_LANES: each cluster's key is the least
+// slab entry over the block's alive rays (SWEEP_BIG when none enters); the
+// clusters are visited in key order, the lowest index first on ties, until
+// the keys reach SWEEP_BIG, and a visited cluster is swept when an alive ray
+// enters it nearer than its best t.  rtm_tpu pops the least key nc times;
+// since the keys are fixed within a bounce, that is their sorted order, so
+// here each key's rank is counted once.  Returns the clusters swept.  Every
+// thread of the block calls it; blockDim.x is a multiple of 32.
+__device__ __forceinline__ int sweep_clusters_near(
+    const float* __restrict__ feats, const float* __restrict__ boxes,
+    const int* __restrict__ offsets, const int* __restrict__ widths, int nc,
+    const SweepRay& r, bool alive, float inv_dx, float inv_dy, float inv_dz,
+    float* __restrict__ s_rows, NearScratch& sc, float& best_t,
+    int& best_i) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  for (int c = 0; c < nc; ++c) {
+    const float* b = boxes + c * 8;
+    float v = alive ? slab_near(__ldg(b + 0), __ldg(b + 1), __ldg(b + 2),
+                                __ldg(b + 3), __ldg(b + 4), __ldg(b + 5), r,
+                                inv_dx, inv_dy, inv_dz, SWEEP_BIG)
+                    : SWEEP_BIG;
+    for (int k = 16; k > 0; k >>= 1)
+      v = fminf(v, __shfl_xor_sync(0xffffffffu, v, k));
+    if (lane == 0) sc.wmin[c * 32 + warp] = v;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < nc; c += blockDim.x) {
+    float k = sc.wmin[c * 32];
+    for (int w = 1; w < warps; ++w) k = fminf(k, sc.wmin[c * 32 + w]);
+    sc.keys[c] = k;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < nc; c += blockDim.x) {
+    const float k = sc.keys[c];
+    int rank = 0;
+    for (int j = 0; j < nc; ++j) {
+      const float kj = sc.keys[j];
+      rank += (kj < k || (kj == k && j < c)) ? 1 : 0;
+    }
+    sc.order[rank] = c;
+  }
+  __syncthreads();
+  int n_pass = 0;
+  for (int i = 0; i < nc; ++i) {
+    const int c = sc.order[i];
+    if (!(sc.keys[c] < SWEEP_BIG)) break;  // the same for the whole block
+    const float* b = boxes + c * 8;
+    const float near = slab_near(__ldg(b + 0), __ldg(b + 1), __ldg(b + 2),
+                                 __ldg(b + 3), __ldg(b + 4), __ldg(b + 5), r,
+                                 inv_dx, inv_dy, inv_dz, SWEEP_BIG);
+    if (!__syncthreads_or(alive && near < best_t)) continue;
+    ++n_pass;
+    sweep_cluster(feats, __ldg(offsets + c), __ldg(widths + c), r, s_rows,
+                  best_t, best_i);
+  }
+  return n_pass;
 }
 
 }  // namespace rtm

@@ -14,6 +14,8 @@ Routes to the gradient, as in rtm_tpu:
     sweep kernel per bounce;
   * backend="xla" or "pallas": the per-bounce reference renderer, through
     the chunked sweep or the intersect kernel.
+The fused forward kernels (trav, megakernel) have no gradient, as
+rtm_tpu's `pallas_call`s carry no VJP: `loss_and_grad` raises there.
 """
 from __future__ import annotations
 
@@ -152,6 +154,12 @@ def loss_and_grad(params: SceneParams, scene, cam, target, frame_index: int,
         return loss, SceneParams(*total)
     loss = render_loss(leaves, scene, cam, target, frame_index, cfg,
                        backend, remat, rebuild_tri_geometry, soft_tau, bands)
+    if not loss.requires_grad:
+        raise ValueError(
+            f"loss_and_grad(backend={backend!r}): the route this scene takes "
+            "there is a forward-only kernel with no gradient (rtm_tpu's "
+            "pallas_call carries no VJP either); use backend='mxu', "
+            "'wavefront2', 'xla' or 'pallas'")
     return loss.detach(), SceneParams(*_grads(loss, leaves))
 
 

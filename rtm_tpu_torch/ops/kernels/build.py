@@ -28,7 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 # every csrc/<name>.cu kernel library of the package
-KERNELS = ("mxu_trace", "trav_trace", "cluster_sweep", "intersect_sweep")
+KERNELS = ("mxu_trace", "trav_trace", "cluster_sweep", "intersect_sweep",
+           "mega_trace")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -25,7 +25,7 @@ import torch
 
 from ..intersect import DET_EPS, FLT_MAX, cross3
 from .build import check_arg, load_kernel_library
-from .sweep_kernel import _slab_near
+from .megakernel import _slab_near
 
 CLUSTER = 128            # triangles per cluster
 DEFAULT_RAY_TILE = 256   # rays per thread block / skip decision

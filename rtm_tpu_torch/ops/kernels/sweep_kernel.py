@@ -30,31 +30,12 @@ import ctypes
 
 import torch
 
-from ..intersect import DET_EPS
 from .build import check_arg, load_kernel_library
-from .megakernel import MegaPack
-from .vreg_common import BIG, _safe_inv_dirs
+from .megakernel import (MegaPack, _slab_near, cluster_argmin, pair_t)
+from .vreg_common import BIG, _cross, _safe_inv_dirs
 
 DEFAULT_RAY_TILE = 512
 MAX_RAY_TILE = 1024      # threads per block
-
-
-def _slab_near(box, ox, oy, oz, inv_dx, inv_dy, inv_dz, miss=BIG):
-    """megakernel._slab_near: per-ray entry distance to the box [lo3, hi3]
-    (`miss` where the ray misses it; min and max propagate NaN)."""
-    t1x = (box[0] - ox) * inv_dx
-    t2x = (box[3] - ox) * inv_dx
-    t1y = (box[1] - oy) * inv_dy
-    t2y = (box[4] - oy) * inv_dy
-    t1z = (box[2] - oz) * inv_dz
-    t2z = (box[5] - oz) * inv_dz
-    tn = torch.maximum(torch.maximum(torch.minimum(t1x, t2x),
-                                     torch.minimum(t1y, t2y)),
-                       torch.minimum(t1z, t2z))
-    tf = torch.minimum(torch.minimum(torch.maximum(t1x, t2x),
-                                     torch.maximum(t1y, t2y)),
-                       torch.maximum(t1z, t2z))
-    return torch.where((tf >= 0.0) & (tn <= tf), tn, miss)
 
 
 def cluster_sweep_plain(feats, boxes, offsets: tuple, widths: tuple, state8,
@@ -63,51 +44,37 @@ def cluster_sweep_plain(feats, boxes, offsets: tuple, widths: tuple, state8,
     """Plain PyTorch version of the kernel: feats (T', 16), boxes (C, 8),
     the cluster layout as Python tuples, state8 (8, Np).  Returns (t (Np,)
     f32, BIG on miss, i_padded (Np,) i32, passes (Np / ray_tile,) i32), and
-    with_passed which clusters each tile swept (Np / ray_tile, C) bool."""
+    with_passed which clusters each tile swept (Np / ray_tile, C) bool.
+    A cluster's pair tests run on the rays of the tiles that sweep it."""
     n = state8.shape[1]
     dev = state8.device
     tiles = n // ray_tile
-    ox, oy, oz, dx, dy, dz = (state8[k][:, None] for k in range(6))
+    ox, oy, oz, dx, dy, dz = ray = [state8[k][:, None] for k in range(6)]
+    ray += _cross(ox, oy, oz, dx, dy, dz)                  # w = o x d
     alive = (state8[6] > 0.5)[:, None]
-    wx, wy, wz = oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx
     inv = _safe_inv_dirs(dx, dy, dz)
     best_t = torch.full((n, 1), BIG, device=dev)
     best_i = torch.full((n, 1), -1, dtype=torch.int64, device=dev)
-    passes = torch.zeros(tiles, dtype=torch.int32, device=dev)
     passed = torch.zeros((tiles, len(offsets)), dtype=torch.bool, device=dev)
     for ci, (off, wdt) in enumerate(zip(offsets, widths)):
+        lanes = slice(None)
         if cull:
             near = _slab_near(boxes[ci], ox, oy, oz, *inv)
-            go = ((near < best_t) & alive).reshape(tiles, ray_tile).any(dim=1)
+            go = ((near < best_t) & alive).view(tiles, ray_tile).any(dim=1)
             if not bool(go.any()):
                 continue
-            passes += go.to(torch.int32)
             passed[:, ci] = go
-            lane_go = go.repeat_interleave(ray_tile)[:, None]
+            lanes = go.repeat_interleave(ray_tile).nonzero()[:, 0]
         else:
-            passes += 1
             passed[:, ci] = True
-            lane_go = None
-        f = feats[off:off + wdt].T                               # (16, W)
-        det = -(dx * f[0:1] + dy * f[1:2] + dz * f[2:3])
-        tdet = (ox * f[0:1] + oy * f[1:2] + oz * f[2:3]) - f[3:4]
-        udet = ((wx * f[7:8] + wy * f[8:9] + wz * f[9:10])
-                - (dx * f[10:11] + dy * f[11:12] + dz * f[12:13]))
-        vdet = ((dx * f[13:14] + dy * f[14:15] + dz * f[15:16])
-                - (wx * f[4:5] + wy * f[5:6] + wz * f[6:7]))
-        wdet = det - udet - vdet
-        m = torch.minimum(torch.minimum(det - DET_EPS, tdet),
-                          torch.minimum(torch.minimum(udet, vdet), wdet))
-        tt = torch.where(m >= 0.0, tdet / torch.clamp(det, min=DET_EPS), BIG)
-        cmin = tt.amin(dim=1, keepdim=True)
-        col = torch.arange(wdt, device=dev)[None, :]
-        cand = torch.where(tt == cmin, col, 2 ** 30).amin(dim=1, keepdim=True)
-        better = cmin < best_t
-        if lane_go is not None:
-            better = better & lane_go
-        best_t = torch.where(better, cmin, best_t)
-        best_i = torch.where(better, cand + off, best_i)
-    out = (best_t[:, 0], best_i[:, 0].to(torch.int32), passes)
+        cmin, cand = cluster_argmin(
+            pair_t(feats[off:off + wdt].T, *(v[lanes] for v in ray)), off)
+        bt = best_t[lanes]
+        better = cmin < bt
+        best_t[lanes] = torch.where(better, cmin, bt)
+        best_i[lanes] = torch.where(better, cand, best_i[lanes])
+    out = (best_t[:, 0], best_i[:, 0].to(torch.int32),
+           passed.sum(dim=1, dtype=torch.int32))
     return out + (passed,) if with_passed else out
 
 

@@ -14,13 +14,15 @@ winner's distance is recomputed from its plane).  `remat` recomputes each
 bounce in the backward pass (`torch.utils.checkpoint`) instead of keeping
 its residuals.
 
-`render_dispatch` routes: mxu inside its tables, else trav, else the
-megakernel (not ported: NotImplementedError naming ROADMAP.md queue 1
-item 8); `wavefront2` through ops/wavefront2.py; `xla` and `pallas` through
-`render_pixels`, which also takes the max_bounces == 1 flat-shade preview
-for every backend.
+`render_dispatch` routes as rtm_tpu does: mxu inside its tables, else
+trav inside its own, else the megakernel where its tables and outputs fit
+the device, else wavefront2 (ops/wavefront2.py); `xla` and `pallas`
+through `render_pixels`, which also takes the max_bounces == 1 flat-shade
+preview for every backend.
 """
 from __future__ import annotations
+
+import warnings
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -32,15 +34,6 @@ from .intersect import (FLT_MAX, TriFeatures, _mm3, cross3, dot3,
                         safe_normalize)
 from .shade import (env_radiance, flat_shade, sample_texture_quads, scatter,
                     sphere_uv)
-
-_NOT_PORTED_MEGAKERNEL = "item 8 (megakernel)"
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to rtm_tpu_torch yet: ROADMAP.md queue 1 "
-        f"{item}")
-
 
 def pixel_grid(width: int, height: int, device="cpu"):
     """Row-major pixel ids: x (N,), y (N,) with N = W*H; image[y, x]."""
@@ -389,12 +382,32 @@ def _step(fn, remat: bool, *args):
     return fn(*args)
 
 
+def _check_finite(frame: int, bounce: int, p: dict, state) -> None:
+    """Raise FloatingPointError naming the first payload or path-state
+    tensor of this bounce that holds NaN/Inf (on any lane)."""
+    named = [(f"payload {k!r}", p[k]) for k in ("t", "hit_pos", "normal",
+                                                "u", "v")]
+    named += list(zip(("origin", "direction", "seed", "color",
+                       "contribution"), state[:5]))
+    for name, t in named:
+        if t.is_floating_point():
+            bad = int((~torch.isfinite(t)).sum())
+            if bad:
+                raise FloatingPointError(
+                    f"frame {frame} bounce {bounce}: {name} holds {bad} "
+                    f"NaN/Inf values of {t.numel()}")
+
+
 def render_pixels(scene, cam, x, y, frame_index: int, cfg: RenderConfig,
                   chunk: int = 512, backend: str = "xla",
-                  remat: bool = False, hitrec=None):
+                  remat: bool = False, hitrec=None,
+                  check_finite: bool = False):
     """Trace an arbitrary set of pixels (x, y) on the scene's device: the
     core dispatch.  `remat` recomputes each bounce in the backward pass
-    instead of storing its residuals.
+    instead of storing its residuals.  `check_finite` (sweep mode only)
+    checks every bounce's hit payload and path state and raises
+    FloatingPointError at the first that holds NaN/Inf, naming the frame,
+    the bounce and the tensor (utils/guards.py).
 
     hitrec: optional (max_frames * max_bounces, N) i32 packed winner
     records (mxu_kernel HR_*): record-REPLAY mode, no sweeps; the hit
@@ -416,8 +429,11 @@ def render_pixels(scene, cam, x, y, frame_index: int, cfg: RenderConfig,
     def bounce(i, o, d, sd, color, contrib, alive):
         sd = (sd + i) & rng.U32_MASK                            # shader:659
         p = bounce_payload(scene, feats, o, d, chunk, backend)
-        return shade_bounce(scene, cfg, draw_env, o, d, sd, color, contrib,
-                            alive, p)
+        out = shade_bounce(scene, cfg, draw_env, o, d, sd, color, contrib,
+                           alive, p)
+        if check_finite:
+            _check_finite(frame, i, p, out)
+        return out
 
     def replay(i, hr, o, d, sd, color, contrib, alive, m_dir, m_ctr, m_mask):
         sd = (sd + i) & rng.U32_MASK                            # shader:659
@@ -486,7 +502,8 @@ def render_dispatch(scene, cam, frame_index: int, cfg: RenderConfig,
     frame_index: the 1-based accumulation counter (Python int).
     backend: 'auto' (see auto_backend, on the scene's device) | 'mxu'
     (falls to trav beyond the mxu tables) | 'trav' (falls to the
-    megakernel, not ported: NotImplementedError) | 'megakernel' |
+    megakernel beyond its tables) | 'megakernel' (falls to wavefront2,
+    loudly, when the dispatch does not fit the device: megakernel_fits) |
     'wavefront2' (sorted wavefront: the cluster-sweep kernel + torch
     shading) | 'xla' (chunked sweep) | 'pallas' (the intersect kernel per
     bounce).  The fused and wavefront paths fall to 'xla' for the
@@ -509,12 +526,17 @@ def render_dispatch(scene, cam, frame_index: int, cfg: RenderConfig,
         if tm is not None and tm.supported:
             from .kernels.trav_kernel import render_trav
             return render_trav(scene, cam, frame_index, cfg)
-        _not_ported("a scene beyond the trav table limits (< 1024 BVH "
-                    "nodes, <= 512 leaves, <= 128 materials / textured "
-                    "triangles / spheres), which rtm_tpu sends to the "
-                    "megakernel", _NOT_PORTED_MEGAKERNEL)
+        backend = "megakernel"                    # table-limit fallback
     if backend == "megakernel" and multi:
-        _not_ported("backend 'megakernel'", _NOT_PORTED_MEGAKERNEL)
+        from .kernels.megakernel import megakernel_fits, render_megakernel
+        if megakernel_fits(scene, cfg):
+            return render_megakernel(scene, cam, frame_index, cfg)
+        warnings.warn(
+            f"render_dispatch: the megakernel's tables and outputs for a "
+            f"{cfg.width}x{cfg.height} dispatch of {scene.num_triangles} "
+            f"triangles do not fit the device; falling back to wavefront2",
+            stacklevel=2)
+        backend = "wavefront2"
     if backend == "wavefront2" and multi:
         from .wavefront2 import render_wavefront2
         return render_wavefront2(scene, cam, frame_index, cfg)

@@ -442,3 +442,110 @@ def test_mxu_grad_on_the_card_matches_the_cpu(cuda):
         a, b = getattr(gk, name).cpu(), getattr(gp, name)
         assert torch.isfinite(a).all(), name
         assert torch.allclose(a, b, rtol=1e-3, atol=1e-5), name
+
+
+# The megakernel.  Kernel and plain version compute the same f32 operations
+# in the same order (--fmad=false, IEEE division) over the same ray tiles, so
+# a lane differs only where a transcendental's last place tips a near-tie:
+# >= 99.9% of lanes must agree on color / miss / rec within 1e-3 (every
+# lane, dead ones too), and the per-tile-bounce cluster passes on >= 99% of
+# tile-bounces.
+# name: (scene, width, height, bounces, frames, frame_index, cull, order)
+MEGA_CASES = {
+    "scene1": (1, 64, 64, 4, 1, 1, True, "static"),
+    "scene2_2frames": (2, 64, 64, 4, 2, 3, True, "static"),
+    "scene3": (3, 64, 64, 4, 1, 1, True, "static"),
+    "scene3_near": (3, 64, 64, 4, 1, 1, True, "near"),
+    "grid10": ("grid10", 64, 64, 4, 1, 1, True, "static"),
+    "grid10_near": ("grid10", 64, 64, 4, 1, 1, True, "near"),
+    "grid10_nocull": ("grid10", 64, 64, 4, 1, 1, False, "static"),
+    "scene3_tail": (3, 24, 20, 3, 1, 1, True, "static"),
+}
+
+
+def _mega_setup(name, device):
+    from rtm_tpu_torch.ops.kernels.megakernel import build_mega_pack
+
+    sid, w, h, bounces, frames, fi, cull, order = MEGA_CASES[name]
+    st = _scene(sid, device)
+    cfg = rtm_tpu_torch.RenderConfig(width=w, height=h, max_bounces=bounces,
+                                     max_frames=frames, draw_environment=True)
+    camf = _pack_camera(rtm_tpu_torch.Camera().spec(w, h), device)
+    return st, build_mega_pack(st), camf, fi, cfg, dict(cull=cull,
+                                                         order=order)
+
+
+@pytest.mark.parametrize("name", list(MEGA_CASES))
+def test_mega_kernel_matches_plain(cuda, name):
+    from rtm_tpu_torch.ops.kernels import megakernel as mk
+
+    st, pack, camf, fi, cfg, kw = _mega_setup(name, cuda)
+    n = cfg.width * cfg.height
+    before = mk.mega_trace.launches
+    k = mk.mega_trace(st, pack, camf, fi, 0, n, cfg, with_stats=True, **kw)
+    assert mk.mega_trace.launches == before + 1
+    p = mk.mega_trace_plain(st, pack, camf, fi, 0, n, cfg, with_stats=True,
+                            **kw)
+    torch.cuda.synchronize()
+    diff = torch.zeros(n, device=cuda)
+    for a, b in zip(k[:3], p[:3]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.shape == b.shape and torch.isfinite(a).all()
+            diff = torch.maximum(diff, (a - b).abs().amax(dim=0))
+    assert float((diff <= MAX_ABS_ERR).float().mean()) >= AGREE_MIN
+    assert k[3].passes.shape == p[3].passes.shape
+    assert float((k[3].passes == p[3].passes).float().mean()) >= 0.99
+    live = p[3].alive
+    same = (k[3].winners == p[3].winners)[live]
+    assert float(same.float().mean()) >= AGREE_MIN
+    if st.num_triangles:
+        assert int(k[3].passes.sum()) > 0
+
+
+def test_mega_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from rtm_tpu_torch.ops.kernels import megakernel as mk
+
+    st, pack, camf, fi, cfg, _ = _mega_setup("scene2_2frames", cuda)
+    before = mk.mega_trace.launches
+    for bad in (camf.double(), camf[:32]):
+        with pytest.raises(ValueError, match="camf"):
+            mk.mega_trace(st, pack, bad, 1, 0, 256, cfg)
+    for field, bad in (("tri_feats", pack.tri_feats.double()),
+                       ("tri_attrs", pack.tri_attrs[:, :32]),
+                       ("boxes", pack.boxes.cpu()),
+                       ("offsets", pack.offsets_dev.long()),
+                       ("spheres", pack.tri_attrs[:16])):
+        key = {"offsets": "offsets_dev"}.get(field, field)
+        with pytest.raises(ValueError, match=field):
+            mk.mega_trace(st, pack._replace(**{key: bad}), camf, 1, 0, 256,
+                          cfg)
+    with pytest.raises(ValueError, match="ray_tile"):
+        mk.mega_trace(st, pack, camf, 1, 0, 256, cfg, ray_tile=1024)
+    with pytest.raises(ValueError, match="order"):
+        mk.mega_trace(st, pack, camf, 1, 0, 256, cfg, order="far")
+    with pytest.raises(ValueError, match="scene on"):
+        mk.mega_trace(st, pack, camf.cpu(), 1, 0, 256, cfg)
+    assert mk.mega_trace.launches == before
+
+
+@pytest.mark.parametrize("sid", [3, "grid10"])
+def test_mega_render_dispatch_on_the_card(cuda, sid):
+    """render_dispatch(backend="megakernel") launches the kernel once per
+    frame, and its frame matches the same scene rendered on the CPU through
+    the plain version."""
+    from rtm_tpu_torch.ops.kernels import megakernel as mk
+
+    w = h = 32
+    cfg = rtm_tpu_torch.RenderConfig(width=w, height=h, max_bounces=4,
+                                     draw_environment=True)
+    cam = rtm_tpu_torch.Camera().spec(w, h)
+    before = mk.mega_trace.launches
+    got = rtm_tpu_torch.render_dispatch(_scene(sid, cuda), cam, 2, cfg,
+                                        backend="megakernel")
+    assert got.device.type == "cuda" and mk.mega_trace.launches == before + 1
+    want = rtm_tpu_torch.render_dispatch(_scene(sid, "cpu"), cam, 2, cfg,
+                                         backend="megakernel")
+    diff = np.abs(got.cpu().numpy() - want.numpy()).max(axis=-1)
+    assert diff.mean() <= 5e-3 and (diff > 2e-2).mean() <= 0.01
+    assert (diff > 0.2).mean() <= 0.003

@@ -136,23 +136,21 @@ def test_auto_backend_resolution():
                                      "wavefront2"])
 def test_unported_backends_raise(backend):
     """What each backend does not carry yet raises NotImplementedError
-    naming its ROADMAP item: the megakernel (item 8) for 'megakernel', and
-    for the ported per-bounce and wavefront backends the soft primary
-    visibility loss (item 10)."""
+    naming its ROADMAP item: the soft primary visibility loss (item 10)."""
     st = _port_scene(2)
     _, cfg = _cfgs(16, 16, 3)
     cam = rtm_tpu_torch.Camera().spec(16, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        if backend == "megakernel":
-            rtm_tpu_torch.render_dispatch(st, cam, 1, cfg, backend=backend)
-        else:
-            rtm_tpu_torch.render_loss(
-                rtm_tpu_torch.extract_params(st), st, cam,
-                torch.zeros((16, 16, 3)), 1, cfg, backend=backend,
-                soft_tau=0.05)
+        rtm_tpu_torch.render_loss(
+            rtm_tpu_torch.extract_params(st), st, cam,
+            torch.zeros((16, 16, 3)), 1, cfg, backend=backend,
+            soft_tau=0.05)
 
 
 def test_unported_configurations_raise():
+    """soft_tau raises on the flat preview too, an unknown backend raises,
+    and a scene beyond both the mxu and the trav tables no longer raises:
+    it renders through the megakernel (its plain version on the CPU)."""
     st = _port_scene(2)
     cam = rtm_tpu_torch.Camera().spec(16, 16)
     _, flat = _cfgs(16, 16, 1)
@@ -164,10 +162,12 @@ def test_unported_configurations_raise():
     beyond = dataclasses.replace(
         st, mxu_meta=st.mxu_meta._replace(supported=False),
         trav_meta=st.trav_meta._replace(supported=False))
+    want = rtm_tpu_torch.render_dispatch(beyond, cam, 1, cfg,
+                                         backend="megakernel")
     for backend in ("auto", "mxu", "trav"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            rtm_tpu_torch.render_dispatch(beyond, cam, 1, cfg,
-                                          backend=backend)
+        got = rtm_tpu_torch.render_dispatch(beyond, cam, 1, cfg,
+                                            backend=backend)
+        assert torch.equal(got, want)
     with pytest.raises(ValueError, match="unknown backend"):
         rtm_tpu_torch.render_dispatch(st, cam, 1, cfg, backend="mxu2")
 
