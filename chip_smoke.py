@@ -59,11 +59,13 @@ Phases (each prints lines starting with its tag, and its seconds):
   [wf2]     dragon_grid(56), 512x512, 8 bounces, backend="wavefront2": 2
             warm-up + WF2_TIMED frames of render_progressive; ms/frame, sweep
             launches per frame, the sweep kernel's ms per frame by CUDA
-            events, its bound and plain time, cluster passes per
+            events, its bound and plain time, cluster passes and candidate
+            clusters (the prefilter's, `sweep_candidates_plain`) per
             tile-bounce, and the plain version's output on those bands held
-            against the kernel's by the [sweep-compare] criteria;
-            [wf2-profile] the device idle share; and frame 1 at 64x64
-            against the port's xla path by images_close
+            against the kernel's by the [sweep-compare] criteria; per
+            bounce, the kernel's ms beside its heaviest tile's alone, and
+            the prefilter alone; [wf2-profile] the device idle share; and
+            frame 1 at 64x64 against the port's xla path by images_close
   [pallas]  scene 3, 512x512, 8 bounces, backend="pallas": ms/frame, the
             intersect kernel's ms per frame, launches, bound and plain time,
             and the plain version's output on those rays held against the
@@ -89,14 +91,17 @@ Phases (each prints lines starting with its tag, and its seconds):
             held against the kernel's on every lane by the [mega-compare]
             criteria, and the kernel's bound from its work counts
   [mega-big] dragon_grid(56) (768 clusters), backend="megakernel": ms/frame,
-            kernel ms, cluster passes per tile-bounce, the plain version's
-            time and agreement and the bound, and frame 1 against the trav
-            path's by images_close; [mega-big-profile]
+            kernel ms, cluster passes and candidates per tile-bounce (as
+            [wf2], on the plain version's rays), the heaviest tile's kernel
+            ms alone, the plain version's time and agreement and the bound,
+            and frame 1 against the trav path's by images_close;
+            [mega-big-profile]
   [mega-auto] a textured dragon_grid(16) (5120 textured triangles, beyond
             the mxu and trav tables), backend="auto" resolves to the
-            megakernel; ms/frame, kernel ms, the plain version's time,
-            agreement and bound, frame 1 against the wavefront2 path's by
-            images_close; [mega-auto-profile]
+            megakernel; ms/frame, kernel ms, cluster passes and candidates
+            per tile-bounce, the plain version's time, agreement and bound,
+            frame 1 against the wavefront2 path's by images_close;
+            [mega-auto-profile]
   [cli]     `python -m rtm_tpu_torch render --backend megakernel` as a
             subprocess: exit 0 and a PNG
   [total]   the whole run's seconds
@@ -732,6 +737,17 @@ def sweep_plain(pack, state8):
                                state8, with_passed=True)
 
 
+def candidates_per_tile(pack, bands) -> float:
+    """Mean candidate clusters per tile over `bands` (sweep_kernel.py
+    `sweep_candidates_plain`): the clusters the kernels' serial walk still
+    visits after the prefilter."""
+    from rtm_tpu_torch.ops.kernels.sweep_kernel import sweep_candidates_plain
+
+    cand = [sweep_candidates_plain(pack, b) for b in bands]
+    return (sum(int(c.sum()) for c in cand)
+            / sum(c.shape[0] for c in cand))
+
+
 def phase_sweep_compare(sm: Smoke, scenes):
     """Cluster-sweep kernel vs plain version on every band of (name, scene,
     bands); returns the max abs t error on the lanes whose rows agree."""
@@ -868,6 +884,32 @@ def intersect_bound(feats, boxes, nc, n_tris, rays, passed):
                                  else "operations")
 
 
+def sweep_breakdown(pack, bands, k_outs):
+    """Where the cluster sweep's time goes on one frame's bands: each band's
+    kernel ms, its heaviest tile's passes and that tile's kernel ms alone
+    (its slots as a one-tile band: a tile's passes run one after another in
+    one thread block, so the heaviest tile bounds its band), and the
+    prefilter alone (band 0's rays, all alive, moved out of the scene
+    and heading away: no candidate, no pass)."""
+    from rtm_tpu_torch.ops.kernels.megakernel import DEFAULT_RAY_TILE
+    from rtm_tpu_torch.ops.kernels.sweep_kernel import cluster_sweep
+
+    r = DEFAULT_RAY_TILE
+    band_ms, tile_ms, tile_passes = [], [], []
+    for b, k in zip(bands, k_outs):
+        heavy = int(k[2].argmax())
+        one = b[:, heavy * r:(heavy + 1) * r].contiguous()
+        band_ms.append(cuda_ms(lambda: cluster_sweep(pack, b), 3))
+        tile_ms.append(cuda_ms(lambda: cluster_sweep(pack, one), 3))
+        tile_passes.append(int(k[2][heavy]))
+    away = bands[0].clone()
+    away[0:3] += 1e4
+    away[3:6] = away[3:6].abs()
+    away[6] = 1.0
+    prefilter_ms = cuda_ms(lambda: cluster_sweep(pack, away), 3)
+    return band_ms, tile_ms, tile_passes, prefilter_ms
+
+
 def phase_wf2(sm: Smoke, scene, build_s: float):
     """The wavefront2 path on the [trav] scene: drive, then the sweep
     kernel alone on one frame's bands (sorted as the path sorts them), its
@@ -899,11 +941,20 @@ def phase_wf2(sm: Smoke, scene, build_s: float):
           f"{len(bands)} sweep_kernel_ms/frame={k_ms:.4f} "
           f"plain_ms/frame={plain_ms:.3f} bound_ms={bound_ms:.5f} "
           f"({bound_by}) cluster_passes/tile-bounce="
-          f"{float(passes.mean()):.3f} of {pack.n_clusters} "
+          f"{float(passes.mean()):.3f} candidates/tile-bounce="
+          f"{candidates_per_tile(pack, bands):.3f} of {pack.n_clusters} "
           f"alive_rays/frame={alive}", flush=True)
     print(f"[wf2] kernel vs plain on these bands: min_alive_agree="
           f"{agree:.6f} min_tile_passes_equal={tiles:.4f} "
           f"max_abs_err={err:.3e}", flush=True)
+    band_ms, tile_ms, tile_passes, pre_ms = sweep_breakdown(pack, bands,
+                                                            k_outs)
+    live = [int((k[2] > 0).sum()) for k in k_outs]
+    fmt = lambda v: "[" + ", ".join(f"{x:.4f}" for x in v) + "]"  # noqa: E731
+    print(f"[wf2] per bounce: kernel_ms={fmt(band_ms)} "
+          f"heaviest_tile_alone_ms={fmt(tile_ms)} "
+          f"heaviest_tile_passes={tile_passes} tiles_with_passes={live} "
+          f"prefilter_only_bounce0_ms={pre_ms:.4f}", flush=True)
     check_sweep(sm, "wf2", "kernel vs plain", agree, tiles)
     sm.check(len(bands) == cfg.max_bounces, "wf2 bands per frame")
     return cfg, ms, launches, k_ms, plain_ms, bound_ms, bound_by, err
@@ -1230,10 +1281,12 @@ def mega_agreement(sm: Smoke, label: str, scene, cfg, k, p) -> float:
 
 
 def mega_pair(scene, cfg, order: str = "static", cull: bool = True):
-    """(kernel outputs, plain outputs, plain ms by CUDA events, pack, camf)
+    """(kernel outputs, plain outputs, plain ms by CUDA events, pack, camf,
+    the (8, N) ray band of each bounce of the plain version's static sweep)
     of one frame-1 dispatch of the whole frame, both with stats."""
     import torch
     from rtm_tpu_torch import Camera
+    from rtm_tpu_torch.ops.kernels import sweep_kernel
     from rtm_tpu_torch.ops.kernels.megakernel import (_pack_camera,
                                                       build_mega_pack,
                                                       mega_trace,
@@ -1247,12 +1300,13 @@ def mega_pair(scene, cfg, order: str = "static", cull: bool = True):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    start.record()
-    p = mega_trace_plain(scene, pack, camf, 1, 0, n, cfg, cull=cull,
-                         order=order, with_stats=True)
-    end.record()
-    torch.cuda.synchronize()
-    return k, p, start.elapsed_time(end), pack, camf
+    with recording(sweep_kernel, "cluster_sweep_plain") as calls:
+        start.record()
+        p = mega_trace_plain(scene, pack, camf, 1, 0, n, cfg, cull=cull,
+                             order=order, with_stats=True)
+        end.record()
+        torch.cuda.synchronize()
+    return k, p, start.elapsed_time(end), pack, camf, [c[4] for c in calls]
 
 
 def phase_mega_compare(sm: Smoke, cases):
@@ -1266,7 +1320,7 @@ def phase_mega_compare(sm: Smoke, cases):
         cfg = RenderConfig(width=COMPARE_RES, height=COMPARE_RES,
                            max_bounces=COMPARE_BOUNCES, max_frames=frames,
                            draw_environment=True)
-        k, p, _, _, _ = mega_pair(scene, cfg, order, cull)
+        k, p = mega_pair(scene, cfg, order, cull)[:2]
         worst = max(worst, mega_agreement(
             sm, f"[mega-compare] {name} order={order} cull={cull}", scene,
             cfg, k, p))
@@ -1313,7 +1367,7 @@ def phase_mega(sm: Smoke, scene, build_s: float):
     cfg, _, ms, launches = drive(sm, "mega", scene, build_s, MEGA_WARM,
                                  MEGA_TIMED, backend_expected="megakernel",
                                  backend="megakernel")
-    k, p, plain_ms, pack, camf = mega_pair(scene, cfg)
+    k, p, plain_ms, pack, camf, _ = mega_pair(scene, cfg)
     k_ms, p_ms = mega_kernel_and_postpass_ms(scene, pack, camf, cfg, 10)
     n = cfg.width * cfg.height
     bound_ms, bound_by = mega_bound(scene, pack, cfg, p[3], n)
@@ -1331,18 +1385,35 @@ def phase_mega(sm: Smoke, scene, build_s: float):
 def phase_mega_big(sm: Smoke, scene, build_s: float):
     """The megakernel on the [trav] scene (768 clusters): drive, the kernel
     and post-pass times, the plain version's time, agreement and bound,
-    and frame 1 against the trav path's.  Returns (cfg, ms/frame)."""
+    the heaviest tile alone, and frame 1 against the trav path's.  Returns
+    (cfg, ms/frame)."""
+    from rtm_tpu_torch.ops.kernels.megakernel import (DEFAULT_RAY_TILE,
+                                                      mega_trace)
+
     cfg, _, ms, _ = drive(sm, "mega-big", scene, build_s, 1, MEGA_BIG_TIMED,
                           backend_expected="megakernel",
                           backend="megakernel")
-    k, p, plain_ms, pack, camf = mega_pair(scene, cfg)
+    k, p, plain_ms, pack, camf, bands = mega_pair(scene, cfg)
     k_ms, p_ms = mega_kernel_and_postpass_ms(scene, pack, camf, cfg, 3)
     n = cfg.width * cfg.height
     bound_ms, bound_by = mega_bound(scene, pack, cfg, p[3], n)
     print(f"[mega-big] clusters={pack.n_clusters} kernel_ms={k_ms:.4f} "
           f"postpass_ms={p_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
           f"plain_ms={plain_ms:.3f} "
-          f"live_ray-bounces={int(p[3].alive.sum())}", flush=True)
+          f"live_ray-bounces={int(p[3].alive.sum())} "
+          f"cluster_passes/tile-bounce={float(k[3].passes.float().mean()):.3f}"
+          f" candidates/tile-bounce={candidates_per_tile(pack, bands):.3f}",
+          flush=True)
+    # a tile's bounces run one after another in one thread block: the tile
+    # that sweeps the most clusters, dispatched alone, bounds the kernel
+    per_tile = k[3].passes.sum(dim=0)
+    heavy = int(per_tile.argmax())
+    r = DEFAULT_RAY_TILE
+    tile_ms = cuda_ms(lambda: mega_trace(scene, pack, camf, 1, heavy * r, r,
+                                         cfg), 3)
+    print(f"[mega-big] heaviest tile {heavy}: passes over its bounces="
+          f"{int(per_tile[heavy])} (mean {float(per_tile.float().mean()):.2f})"
+          f" alone kernel_ms={tile_ms:.4f}", flush=True)
     mega_agreement(sm, f"[mega-big] dragon_grid{TRAV_GRID}", scene, cfg, k, p)
     frame1_vs(sm, "mega-big", scene, cfg, "trav")
     return cfg, ms
@@ -1371,14 +1442,17 @@ def phase_mega_auto(sm: Smoke):
              "mega-auto scene fits the mxu or trav tables")
     cfg, _, ms, _ = drive(sm, "mega-auto", scene, build_s, 1, 8,
                           backend_expected="megakernel", backend="auto")
-    k, p, plain_ms, pack, camf = mega_pair(scene, cfg)
+    k, p, plain_ms, pack, camf, bands = mega_pair(scene, cfg)
     k_ms, p_ms = mega_kernel_and_postpass_ms(scene, pack, camf, cfg, 3)
     bound_ms, bound_by = mega_bound(scene, pack, cfg, p[3],
                                     cfg.width * cfg.height)
     print(f"[mega-auto] clusters={pack.n_clusters} kernel_ms={k_ms:.4f} "
           f"postpass_ms={p_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
           f"plain_ms={plain_ms:.3f} "
-          f"live_ray-bounces={int(p[3].alive.sum())}", flush=True)
+          f"live_ray-bounces={int(p[3].alive.sum())} "
+          f"cluster_passes/tile-bounce={float(k[3].passes.float().mean()):.3f}"
+          f" candidates/tile-bounce={candidates_per_tile(pack, bands):.3f}",
+          flush=True)
     mega_agreement(sm, f"[mega-auto] textured dragon_grid{MEGA_AUTO_GRID}",
                    scene, cfg, k, p)
     frame1_vs(sm, "mega-auto", scene, cfg, "wavefront2")

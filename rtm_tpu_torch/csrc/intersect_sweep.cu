@@ -75,8 +75,7 @@ __global__ void intersect_sweep_kernel(const float* __restrict__ rays,
     __syncthreads();  // the previous cluster's rows are no longer read
     stage_rows(s_rows, feats + (long)c * CLUSTER, CLUSTER, 1, fstride);
     __syncthreads();
-    sweep_block<true>(s_rows, CLUSTER, c * CLUSTER, r, FLT_MAX_F, best_t,
-                      best_i);
+    strict_block(s_rows, CLUSTER, c * CLUSTER, r, FLT_MAX_F, best_t, best_i);
   }
   t_out[ray] = best_t;
   i_out[ray] = best_t < FLT_MAX_F ? best_i : -1;

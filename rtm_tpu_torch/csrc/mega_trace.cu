@@ -13,22 +13,33 @@
 // records in the TPU kernel's row layouts, so the post-pass is shared.
 // Color is written as 3 rows (the TPU kernel's rows 3-7 are always zero).
 //
-// What bounds it on the H100.  Each (ray, cluster) costs a 25-operation
-// slab test, and each (ray, row) of a swept cluster a 45-operation pair test
-// (tri_sweep.cuh); shading is a few hundred FP32 operations per alive
-// ray-bounce.  The bytes are the tables (72 B per padded triangle plus the
-// boxes and spheres) and the color / miss / rec rows written once.
-// chip_smoke.py computes both bounds from each run's alive rays and the
-// clusters each tile swept.  The TPU kernel is built around the VPU: tile-
-// uniform culling, the one-hot MXU fetch of the winner's attributes and the
-// deferred texture records all avoid a per-lane gather that Hopper has.
+// What bounds it on the H100.  Each (alive ray-bounce, cluster) costs a
+// 25-operation slab test, and each (ray, row) of a swept cluster a
+// 45-operation pair test (tri_sweep.cuh); shading is a few hundred FP32
+// operations per alive ray-bounce.  The bytes are the tables (72 B per padded
+// triangle plus the boxes and spheres) and the color / miss / rec rows
+// written once.  chip_smoke.py computes both bounds from each run's alive
+// rays and the clusters each tile swept.  On dragon_grid(56) a tile sweeps
+// 2.5 of 768 clusters per bounce on average, but a block runs its tile's
+// bounces one after another, and the tile that sweeps the most (270
+// clusters over its 8 bounces) takes nearly the whole launch alone
+// (chip_smoke.py [mega-big]): the time is the pair passes of a few tiles,
+// each on one SM.  The TPU kernel is built around the VPU: tile-uniform
+// culling, the one-hot MXU fetch of the winner's attributes and the deferred
+// texture records all avoid a per-lane gather that Hopper has.
 //
 // What the design does about it.  One thread per slot and one thread block
 // per ray tile (512 slots by default, rtm_tpu's tile); all ray state stays in
-// registers for the whole loop.  The tile decides together whether to sweep
-// a cluster (__syncthreads_or over its alive rays), stages that cluster's
-// rows (<= 128 x 16 f32) in shared memory and every thread reads them as
-// broadcasts.  Dead rays keep sweeping with their last ray, as in rtm_tpu
+// registers for the whole loop.  The static-order sweep (tri_sweep.cuh
+// `sweep_clusters`) stages the box table in shared memory a chunk at a time,
+// finds the clusters some alive ray of the tile enters at all by per-warp
+// slab tests (warps with no alive ray skip them), and only for those decides
+// together whether to sweep (__syncthreads_or over its alive rays); a swept
+// cluster's rows (<= 128 x 16 f32) are staged in shared memory and every
+// thread reads them as broadcasts; a warp skips the rows none of its lanes
+// can hit (tri_sweep.cuh `sweep_block`).  The box chunk shares its shared
+// memory with the nearest-first sweep's scratch, since one launch runs only
+// one of the two.  Dead rays keep sweeping with their last ray, as in rtm_tpu
 // (their outputs are records no consumer reads), and no thread leaves the
 // loops early, so every barrier sees the whole block; a block whose rays are
 // all dead leaves the bounce loop together, and its remaining records keep
@@ -83,7 +94,11 @@ struct Params {
 
 __global__ void __launch_bounds__(MAX_TILE) mega_trace_kernel(const Params p) {
   __shared__ float4 s_rows4[STAGE * NFEAT / 4];
-  __shared__ NearScratch s_near;
+  // the static and the nearest-first sweep never run in one launch
+  __shared__ union {
+    BoxScratch box;
+    NearScratch near;
+  } s_sc;
   float* s_rows = reinterpret_cast<float*>(s_rows4);
 
   const int slot = blockIdx.x * blockDim.x + threadIdx.x;
@@ -140,11 +155,12 @@ __global__ void __launch_bounds__(MAX_TILE) mega_trace_kernel(const Params p) {
         n_pass = p.ordered
                      ? sweep_clusters_near(p.feats, p.boxes, p.offsets,
                                            p.widths, p.nc, r, alive, inv_dx,
-                                           inv_dy, inv_dz, s_rows, s_near,
+                                           inv_dy, inv_dz, s_rows, s_sc.near,
                                            t_tri, i_tri)
                      : sweep_clusters(p.feats, p.boxes, p.offsets, p.widths,
                                       p.nc, p.cull != 0, r, alive, inv_dx,
-                                      inv_dy, inv_dz, s_rows, t_tri, i_tri);
+                                      inv_dy, inv_dz, s_rows, s_sc.box, t_tri,
+                                      i_tri);
       }
       if (p.passes != nullptr && threadIdx.x == 0)
         p.passes[(size_t)fb * gridDim.x + blockIdx.x] = n_pass;

@@ -12,7 +12,9 @@ the cluster passes of each tile.
 
 Two implementations of one contract (`cluster_sweep`):
   * the CUDA kernel (csrc/cluster_sweep.cu over csrc/tri_sweep.cuh), one
-    thread block per ray tile;
+    thread block per ray tile, which first finds the tile's candidate
+    clusters (`sweep_candidates_plain` states the set) and then walks only
+    those;
   * the plain version `cluster_sweep_plain`, vectorised over rays with a
     Python loop over clusters and the same tile-uniform skip.
 The wrapper takes the plain version only for CPU tensors.  `sweep_call`
@@ -76,6 +78,28 @@ def cluster_sweep_plain(feats, boxes, offsets: tuple, widths: tuple, state8,
     out = (best_t[:, 0], best_i[:, 0].to(torch.int32),
            passed.sum(dim=1, dtype=torch.int32))
     return out + (passed,) if with_passed else out
+
+
+def sweep_candidates_plain(pack: MegaPack, state8,
+                           ray_tile: int = DEFAULT_RAY_TILE):
+    """The tile's candidate clusters of the kernels' prefilter
+    (csrc/tri_sweep.cuh `sweep_clusters`): (Np / ray_tile, C) bool, True
+    where some alive ray of the tile enters the cluster's box at all
+    (`_slab_near` < BIG).  The best t never exceeds BIG and a miss is BIG,
+    so `cluster_sweep_plain`'s pass matrix lies inside this one.  For tests
+    and measurement; 64 tiles at a time, to bound the (rays, C)
+    intermediates."""
+    n = state8.shape[1]
+    step = 64 * ray_tile
+    boxes_t = pack.boxes.T                          # rows (C,) per bound
+    out = []
+    for lo in range(0, n, step):
+        s = state8[:, lo:lo + step]
+        ox, oy, oz, dx, dy, dz = (s[k][:, None] for k in range(6))
+        near = _slab_near(boxes_t, ox, oy, oz, *_safe_inv_dirs(dx, dy, dz))
+        hit = (near < BIG) & (s[6] > 0.5)[:, None]
+        out.append(hit.view(-1, ray_tile, pack.n_clusters).any(dim=1))
+    return torch.cat(out)
 
 
 _P = ctypes.c_void_p

@@ -257,11 +257,11 @@ def test_trav_render_dispatch_on_the_card(cuda):
 # winners agree on every lane of these bands; the bound kept is rtm_tpu's
 # own: >= 99.9% of (alive) lanes, per-tile passes equal on >= 99% of tiles.
 # The bands are the wavefront2 renderer's own: every bounce of one frame,
-# unsorted (sort_from=99), recorded as the sweep got them.
+# unsorted unless a test asks (sort_from=99), recorded as the sweep got them.
 SWEEP_SCENES = (2, 3, "grid11")
 
 
-def _bands(st, res=32, bounces=4):
+def _bands(st, res=32, bounces=4, sort_from=99):
     from unittest import mock
 
     from rtm_tpu_torch.ops import wavefront2 as wf2
@@ -279,7 +279,7 @@ def _bands(st, res=32, bounces=4):
     with mock.patch.object(wf2, "sweep_call", record):
         wf2.render_rays_wavefront2(st, rtm_tpu_torch.Camera().spec(res, res),
                                    1, cfg, pixel_offset=0, n_rays=res * res,
-                                   sort_from=99)
+                                   sort_from=sort_from)
     return bands
 
 
@@ -549,3 +549,152 @@ def test_mega_render_dispatch_on_the_card(cuda, sid):
     diff = np.abs(got.cpu().numpy() - want.numpy()).max(axis=-1)
     assert diff.mean() <= 5e-3 and (diff > 2e-2).mean() <= 0.01
     assert (diff > 0.2).mean() <= 0.003
+
+
+# The candidate prefilter's edges (csrc/tri_sweep.cuh `sweep_clusters`: box
+# chunks of CB = 512 clusters, per-warp candidate bits, a serial walk over
+# the candidates only).  Each kernel is held to its plain version bitwise
+# on every lane, dead ones too: both compute the same f32 operations in
+# the same order, and the prefilter skips only clusters that cannot pass.
+# dragon_grid(6) recut into 720 one-triangle clusters walks two box
+# chunks; recut into (0, 300), (300, 720) its clusters are wider than one
+# 128-row stage.
+PREFILTER_EDGES = ("dead_tail", "many_clusters", "wide_cluster", "no_box",
+                   "nan_rays")
+
+
+def _edge_scene(edge, device):
+    st = _scene("grid6", device)
+    t = st.num_triangles
+    slices = {"many_clusters": tuple((k, k + 1) for k in range(t)),
+              "wide_cluster": ((0, 300), (300, t))}.get(edge)
+    return dataclasses.replace(st, cluster_slices=slices) if slices else st
+
+
+def _sweep_edge_case(edge, device):
+    """(pack, state8) of one edge case of the cluster sweep: 64x64 bands of
+    the wavefront2 renderer on dragon_grid(6), 8 tiles of 512."""
+    from rtm_tpu_torch.ops.kernels.megakernel import build_mega_pack
+    from rtm_tpu_torch.ops.kernels.sweep_kernel import sweep_candidates_plain
+
+    st = _edge_scene(edge, device)
+    pack = build_mega_pack(st)
+    bands = _bands(st, res=64, bounces=2, sort_from=1)
+    state8 = (bands[1] if edge == "dead_tail" else bands[0]).clone()
+    alive = state8[6]
+    if edge == "dead_tail":
+        # the sorted band's last three tiles dead, and tile 4 down to one
+        # alive ray that enters a box
+        enters = sweep_candidates_plain(pack, state8, 1).any(dim=1)
+        one = int(enters.nonzero()[0, 0])
+        state8[:, 4 * 512] = state8[:, one]
+        alive[4 * 512 + 1:] = 0.0
+    elif edge == "no_box":
+        # even tiles: every ray far out on +x+y+z, heading further out
+        for tile in range(0, 8, 2):
+            lanes = slice(tile * 512, (tile + 1) * 512)
+            state8[0:3, lanes] += 1e4
+            state8[3:6, lanes] = state8[3:6, lanes].abs()
+    elif edge == "nan_rays":
+        # every 7th alive ray NaN in its origin or its direction; tile 3's
+        # only alive ray NaN
+        nan = float("nan")
+        state8[0, 0::14] = nan
+        state8[4, 7::14] = nan
+        alive[3 * 512:4 * 512] = 0.0
+        alive[3 * 512 + 9] = 1.0
+        state8[2, 3 * 512 + 9] = nan
+    return pack, state8
+
+
+@pytest.mark.parametrize("edge", PREFILTER_EDGES)
+def test_cluster_sweep_prefilter_edges_bitwise(cuda, edge):
+    from rtm_tpu_torch.ops.kernels import sweep_kernel as sk
+
+    pack, state8 = _sweep_edge_case(edge, cuda)
+    assert state8.shape == (8, 8 * 512)
+    cand = sk.sweep_candidates_plain(pack, state8)
+    before = sk.cluster_sweep.launches
+    t, i, passes = sk.cluster_sweep(pack, state8)
+    assert sk.cluster_sweep.launches == before + 1
+    pt, pi, pp, passed = sk.cluster_sweep_plain(
+        pack.tri_feats, pack.boxes, pack.cluster_offsets,
+        pack.cluster_widths, state8, with_passed=True)
+    torch.cuda.synchronize()
+    assert torch.equal(t, pt) and torch.equal(i, pi)
+    assert torch.equal(passes, pp)
+    assert not bool((passed & ~cand).any())
+    tile_alive = (state8[6] > 0.5).view(8, 512).any(dim=1)
+    if edge == "dead_tail":
+        assert not bool(tile_alive[5:].any())
+        assert int((state8[6, 4 * 512:5 * 512] > 0.5).sum()) == 1
+        assert int(passes[4]) >= 1 and int(passes[5:].sum()) == 0
+    if edge == "many_clusters":
+        assert pack.n_clusters > 512
+        assert bool(passed[:, 512:].any())
+    if edge == "wide_cluster":
+        assert max(pack.cluster_widths) > 128 and int(passes.sum()) > 0
+    if edge == "no_box":
+        assert not bool(cand[0::2].any()) and int(passes[0::2].sum()) == 0
+        assert bool((t[:512] == sk.BIG).all())
+    if edge == "nan_rays":
+        assert bool(tile_alive[3]) and not bool(cand[3].any())
+        assert int(passes[3]) == 0 and int(passes.sum()) > 0
+
+
+def _mega_edge_case(edge, device):
+    """(scene, pack, camf, cfg, pixel offset, slots) of one edge case of
+    the megakernel on dragon_grid(6), 64x64, 4 bounces."""
+    from rtm_tpu_torch.ops.kernels.megakernel import build_mega_pack
+
+    st = _edge_scene(edge, device)
+    cam = rtm_tpu_torch.Camera()
+    if edge == "no_box":
+        cam.direction = np.array([0.0, 0.0, 1.0])     # away from the grid
+    if edge == "nan_rays":
+        # a NaN shading normal on every 5th triangle: the rays that hit one
+        # scatter into a NaN ray for the next bounce
+        nrm = st.tri_normal.clone()
+        nrm[0::5] = float("nan")
+        st = dataclasses.replace(st, tri_normal=nrm)
+    w = h = 64
+    cfg = rtm_tpu_torch.RenderConfig(width=w, height=h, max_bounces=4,
+                                     draw_environment=True)
+    camf = _pack_camera(cam.spec(w, h), device)
+    # dead_tail: a window whose last tile holds one slot
+    n = 3 * 512 + 1 if edge == "dead_tail" else w * h
+    return st, build_mega_pack(st), camf, cfg, 1024 if edge == "dead_tail" \
+        else 0, n
+
+
+@pytest.mark.parametrize("edge", PREFILTER_EDGES)
+def test_mega_prefilter_edges_bitwise(cuda, edge):
+    from rtm_tpu_torch.ops.kernels import megakernel as mk
+
+    st, pack, camf, cfg, pix0, n = _mega_edge_case(edge, cuda)
+    before = mk.mega_trace.launches
+    k = mk.mega_trace(st, pack, camf, 1, pix0, n, cfg, with_stats=True)
+    assert mk.mega_trace.launches == before + 1
+    p = mk.mega_trace_plain(st, pack, camf, 1, pix0, n, cfg,
+                            with_stats=True)
+    torch.cuda.synchronize()
+    for a, b in zip(k[:3], p[:3]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=0.0, atol=0.0,
+                                       equal_nan=True)
+    assert torch.equal(k[3].passes, p[3].passes)
+    assert torch.equal(k[3].winners, p[3].winners)
+    if edge == "dead_tail":
+        assert k[3].passes.shape[1] == 4
+        assert int(p[3].alive[0, 3 * 512:].sum()) == 1
+    if edge == "many_clusters":
+        assert pack.n_clusters > 512 and bool(p[3].passed[..., 512:].any())
+    if edge == "wide_cluster":
+        assert max(pack.cluster_widths) > 128
+    if edge == "no_box":
+        assert int(k[3].passes.sum()) == 0
+    if edge == "nan_rays":
+        assert bool(torch.isnan(p[1]).any())
+    if edge != "no_box":
+        assert int(k[3].passes.sum()) > 0
