@@ -42,12 +42,15 @@ Phases (each prints lines starting with its tag, and its seconds):
   [trav]    dragon_grid(56), 512x512, 8 bounces: 2 warm-up + 16 timed
             frames of render_progressive with backend="auto" (resolves to
             trav); ms/frame, grays_per_s, the host scene build, the
-            kernel's and the post-pass's own time, node visits and
-            triangle tests per ray-bounce, and the kernel's bound
+            kernel's time (and at max_bounces=1) and the post-pass's,
+            node visits and triangle tests per dispatched ray-bounce, and
+            the kernel's bound
   [trav-profile] [profile] for 4 frames of the [trav] path
   [trav-plain] the trav plain version's time for one frame at the [trav]
             shape, and its output held against the kernel's on the same
-            inputs by the [trav-compare] criteria
+            inputs by the [trav-compare] criteria; then a [trav] line with
+            node visits and triangle tests per live ray-bounce (the rays
+            the plain version's descent walks)
   [sweep-compare] the cluster-sweep kernel vs its plain version on the ray
             bands of all 8 bounces (unsorted) of scene 3, dragon_grid(10)
             and dragon_grid(56) at 64x64: the winning row agrees on >= 0.999
@@ -67,7 +70,9 @@ Phases (each prints lines starting with its tag, and its seconds):
             the prefilter alone; [wf2-profile] the device idle share; and
             frame 1 at 64x64 against the port's xla path by images_close
   [pallas]  scene 3, 512x512, 8 bounces, backend="pallas": ms/frame, the
-            intersect kernel's ms per frame, launches, bound and plain time,
+            intersect kernel's ms per frame (its 8 launches replayed as a
+            CUDA graph: device time; eager through the wrapper beside it),
+            launches, bound and plain time,
             and the plain version's output on those rays held against the
             kernel's by the [intersect-compare] criteria; then
             dragon_grid(56) at the size one frame allows in 5 s
@@ -114,6 +119,7 @@ repository beside this file.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -418,10 +424,11 @@ def phase_trav_compare(sm: Smoke, scenes):
 
 
 def trav_kernel_and_postpass_ms(scene, cfg, reps: int):
-    """Device time of one trav_trace launch and of one post-pass at the
-    [trav] shape, plus an untimed launch with stats on the same inputs
-    (for the bound and the [trav-plain] comparison).  Returns (kernel ms,
-    post-pass ms, that launch's outputs, its camera row)."""
+    """Device time of one trav_trace launch at the [trav] shape and at one
+    bounce, and of one post-pass, plus an untimed launch with stats on the
+    same inputs (for the bound and the [trav-plain] comparison).  Returns
+    (kernel ms, kernel ms at max_bounces=1, post-pass ms, that launch's
+    outputs, its camera row)."""
     from rtm_tpu_torch import Camera
     from rtm_tpu_torch.ops.kernels.megakernel import (_pack_camera,
                                                       mega_postpass)
@@ -432,32 +439,38 @@ def trav_kernel_and_postpass_ms(scene, cfg, reps: int):
     camf = _pack_camera(Camera().spec(cfg.width, cfg.height), scene.device)
     tabs = trav_side_tables(scene)
     k_ms = cuda_ms(lambda: trav_trace(scene, tabs, camf, 1, 0, n, cfg), reps)
+    one = dataclasses.replace(cfg, max_bounces=1)
+    k1_ms = cuda_ms(lambda: trav_trace(scene, tabs, camf, 1, 0, n, one), reps)
     out = trav_trace(scene, tabs, camf, 1, 0, n, cfg, with_stats=True)
     p_ms = cuda_ms(lambda: mega_postpass(out[0].T, out[1], out[2], scene,
                                          cfg, n), reps)
-    return k_ms, p_ms, out, camf
+    return k_ms, k1_ms, p_ms, out, camf
 
 
 def phase_trav_plain(sm: Smoke, scene, cfg, k_out, camf):
     """The trav plain version at the [trav] shape: one frame (frame index
     1, same camera row as `k_out`, the kernel's launch with stats), timed
     by CUDA events, then held against `k_out` by trav_agreement.  Returns
-    (plain ms, max abs error)."""
+    (plain ms, max abs error, live ray-bounces): the ray-bounces that
+    walked the tree, from the alive masks the plain version hands its
+    descent (`trav_nearest_plain`'s `active`)."""
     import torch
-    from rtm_tpu_torch.ops.kernels.trav_kernel import (trav_side_tables,
-                                                       trav_trace_plain)
+    from rtm_tpu_torch.ops.kernels import trav_kernel as ttk
 
-    tabs = trav_side_tables(scene)
+    tabs = ttk.trav_side_tables(scene)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    p = trav_trace_plain(scene, tabs, camf, 1, 0, cfg.width * cfg.height,
-                         cfg, with_stats=True)
-    end.record()
-    torch.cuda.synchronize()
+    with recording(ttk, "trav_nearest_plain") as calls:
+        torch.cuda.synchronize()
+        start.record()
+        p = ttk.trav_trace_plain(scene, tabs, camf, 1, 0,
+                                 cfg.width * cfg.height, cfg,
+                                 with_stats=True)
+        end.record()
+        torch.cuda.synchronize()
+    live = sum(int(c[9].sum()) for c in calls)
     err = trav_agreement(sm, "[trav-plain]", scene, cfg, k_out, p)
-    return start.elapsed_time(end), err
+    return start.elapsed_time(end), err, live
 
 
 def build_scene(host_scene):
@@ -775,7 +788,8 @@ def phase_sweep_compare(sm: Smoke, scenes):
 
 
 def intersect_tables(scene):
-    """(feats, boxes, n_clusters) of the intersect kernel for a scene."""
+    """(feats, boxes, n_clusters) of the intersect kernel for a scene (its
+    real rows: scene.num_triangles)."""
     import torch
     from rtm_tpu_torch.ops.kernels.intersect_kernel import (
         pack_triangle_features)
@@ -786,13 +800,16 @@ def intersect_tables(scene):
     return feats, boxes.contiguous(), nc
 
 
-def intersect_pair(rays, feats, boxes, nc):
+def intersect_pair(rays, feats, boxes, nc, n_tris):
     """(kernel outputs, plain outputs with the clusters each tile passed) of
-    the intersect sweep on one set of ray rows."""
+    the intersect sweep on one set of ray rows, the kernel given the real
+    row count as the pallas path gives it.  The plain version tests every
+    row, padding included."""
     from rtm_tpu_torch.ops.kernels.intersect_kernel import (
         intersect_sweep, intersect_sweep_plain)
 
-    return (intersect_sweep(rays, feats, boxes, nc, return_passes=True),
+    return (intersect_sweep(rays, feats, boxes, nc, return_passes=True,
+                            n_tris=n_tris),
             intersect_sweep_plain(rays, feats, boxes, nc, return_passes=True,
                                   with_passed=True))
 
@@ -809,7 +826,8 @@ def phase_intersect_compare(sm: Smoke, scenes):
         agree, tiles, rel, err = 1.0, 1.0, 0.0, 0.0
         for state8 in bands:
             rays = pack_rays(state8[0:3].T, state8[3:6].T)
-            k, p = intersect_pair(rays, feats, boxes, nc)
+            k, p = intersect_pair(rays, feats, boxes, nc,
+                                  scene.num_triangles)
             torch.cuda.synchronize()
             a, tl, r, e = intersect_agreement(k, p)
             agree, tiles = min(agree, a), min(tiles, tl)
@@ -1005,10 +1023,22 @@ def phase_pallas(sm: Smoke, scene, build_s: float, big):
                       cfg, backend="pallas")
     feats, boxes, nc = intersect_tables(scene)
     packed = [ik.pack_rays(c[0], c[1]) for c in calls]
-    k_ms = cuda_ms(lambda: [ik.intersect_sweep(r, feats, boxes, nc)
-                            for r in packed], 5)
-    k_outs = [ik.intersect_sweep(r, feats, boxes, nc, return_passes=True)
-              for r in packed]
+    n_tris = scene.num_triangles
+
+    def frame():
+        return [ik.intersect_sweep(r, feats, boxes, nc, n_tris=n_tris)
+                for r in packed]
+
+    # the kernel's device time: one frame's launches replayed as one CUDA
+    # graph (through the wrapper one launch costs more host time than the
+    # kernel takes, so eager timing reads the host); eager beside it
+    eager_ms = cuda_ms(frame, 5)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        frame()
+    k_ms = cuda_ms(graph.replay, 5)
+    k_outs = [ik.intersect_sweep(r, feats, boxes, nc, return_passes=True,
+                                 n_tris=n_tris) for r in packed]
     p_outs = []
     plain_ms = cuda_ms(lambda: p_outs.extend(
         ik.intersect_sweep_plain(r, feats, boxes, nc, return_passes=True,
@@ -1023,7 +1053,8 @@ def phase_pallas(sm: Smoke, scene, build_s: float, big):
                                          scene.num_triangles, packed,
                                          [p[3] for p in p_outs])
     print(f"[pallas] clusters={nc} intersect_launches/frame={len(packed)} "
-          f"intersect_kernel_ms/frame={k_ms:.4f} plain_ms/frame="
+          f"intersect_kernel_ms/frame={k_ms:.4f} (graph replay) "
+          f"eager_ms/frame={eager_ms:.4f} plain_ms/frame="
           f"{plain_ms:.3f} bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
     print(f"[pallas] kernel vs plain on these rays: min_agree={agree:.6f} "
           f"min_tile_passes_equal={tiles:.4f} max_rel_err={rel:.3e} "
@@ -1602,7 +1633,7 @@ def main() -> int:
         tcfg, timg, trav_ms, trav_launches = drive(
             sm, "trav", tscene, tbuild_s, TRAV_WARM, TRAV_TIMED,
             backend_expected="trav")
-        tk_ms, tp_ms, tout, tcamf = trav_kernel_and_postpass_ms(
+        tk_ms, tk1_ms, tp_ms, tout, tcamf = trav_kernel_and_postpass_ms(
             tscene, tcfg, 5)
         tstats = tout[3]
         tb_ms, tb_by = trav_bound(tscene, tcfg, tstats, n)
@@ -1610,6 +1641,7 @@ def main() -> int:
         tm = tscene.trav_meta
         print(f"[trav] nodes={tm.n_nodes} leaves={tm.n_leaves} "
               f"leaf_k={tm.leaf_k} kernel_ms={tk_ms:.4f} "
+              f"kernel_ms_1_bounce={tk1_ms:.4f} "
               f"postpass_ms={tp_ms:.4f} bound_ms={tb_ms:.5f} ({tb_by}) "
               f"node_visits/ray-bounce="
               f"{int(tstats[0].sum()) / ray_bounces:.4f} "
@@ -1622,12 +1654,18 @@ def main() -> int:
     with sm.phase("trav-profile"):
         phase_profile(tscene, tcfg, 4, trav_ms, tag="trav-profile")
     with sm.phase("trav-plain"):
-        trav_plain_ms, plain_err = phase_trav_plain(sm, tscene, tcfg, tout,
-                                                    tcamf)
+        trav_plain_ms, plain_err, live = phase_trav_plain(
+            sm, tscene, tcfg, tout, tcamf)
         trav_err = max(trav_err, plain_err)
         print(f"[trav-plain] dragon_grid{TRAV_GRID} {tcfg.width}x"
               f"{tcfg.height} {tcfg.max_bounces} bounces: plain_ms="
               f"{trav_plain_ms:.3f} kernel_ms={tk_ms:.4f}", flush=True)
+        print(f"[trav] per live ray-bounce (rays alive at the bounce's "
+              f"start, from [trav-plain]'s alive masks): live_ray_bounces="
+              f"{live} of {ray_bounces} node_visits/live="
+              f"{int(tstats[0].sum()) / max(live, 1):.4f} tri_tests/live="
+              f"{int(tstats[1].sum()) / max(live, 1):.4f}", flush=True)
+        sm.check(0 < live <= ray_bounces, f"trav live ray-bounces {live}")
 
     with sm.phase("sweep-compare"):
         wide, _ = build_scene(dragon_grid(grid_k))

@@ -28,19 +28,46 @@
 // it: on dragon_grid(56) a leaf holds up to 256 triangles, and the leaf
 // tests dominate.  chip_smoke.py counts both from each run's stats.
 //
-// What the design does about it.  One thread per slot, 128 threads (two 8x8
-// pixel blocks) per block, so a warp's primary rays are a compact pixel
-// patch and descend alike.  All path state stays in registers for the whole
-// loop; a node is one 16-byte load (bf16-pair box + info word), a triangle
-// three 16-byte loads of its row (vertex A and both edges; the shading
-// normal and the packed material are fetched once, for the winner).  The
-// tables are small and read-only, so they stay in L2 and the read-only
-// cache.  No barriers: tail threads leave at once.  The TPU's devices (a
-// persistent per-lane bounce schedule, fixed node bursts, chunked per-lane
-// gathers, VMEM scratch refs) exist for a vector unit and do not carry over.
-// Left for later: warp-coherent traversal, shared-memory node caching, and a
-// leaf size chosen for this card (rtm_tpu's rule grows leaves to 256
-// triangles to keep TPU gathers few).
+// What the design does about it.  One thread per slot, 128 threads per
+// block.  All path state stays in registers for the whole loop.  The node
+// table (at most 1024 16-byte records) is staged into shared memory at
+// block entry, and a node visit reads it from there.  The descent stays
+// per lane, but a lane that enters a leaf does not test it alone: it posts
+// (base, count) and stops, the warp drains the posted leaves in lane order
+// (lowest set bit of a ballot first), and for each one the owner's ray and
+// best t are broadcast and lane j tests rows j, j + 32, ... with the same
+// formulas, keeping its first strict minimum; a butterfly reduction takes
+// the least t, the lower row on equal t.  So a lone live lane's 256-row
+// leaf costs 8 warp steps instead of 256 while its warp's other lanes are
+// done, dead or past the slot count, and a step reads 32 consecutive rows.
+// Tail slots and dead rays take part as lanes that post nothing (they trace
+// the last slot's ray and write nothing), so every lane reaches the warp
+// collectives; the frame and bounce loops are uniform.  A triangle row is
+// three 16-byte loads (vertex A and both edges); the shading normal and
+// the packed material are fetched once, for the winner.
+//
+// A warp's time is then the sum of its lanes' leaf work, and that work is
+// lopsided: on dragon_grid(56) a primary ray that grazes the instances
+// toward the horizon enters tens of leaves (thousands of triangle tests)
+// while a ray into the sky enters none, so a warp of neighbouring pixels
+// may hold tens of times the mean work and run on alone at the end of the
+// launch.  So threads take slots transposed (trav_trace_kernel): a warp's
+// 32 slots lie across the whole dispatch and every warp gets near the mean
+// work.  Each slot's result depends on its own ray only, so the outputs,
+// written in slot order, do not change.
+//
+// The TPU's devices (a persistent per-lane bounce schedule, fixed node
+// bursts, chunked per-lane gathers, VMEM scratch refs) exist for a vector
+// unit and do not carry over.  Left for later: a leaf size chosen for this
+// card (rtm_tpu's rule grows leaves to 256 triangles to keep TPU gathers
+// few).
+//
+// Exactness of the drain: the serial loop keeps the least t below best
+// (strict <, so the lowest row wins ties), and so does the reduction, since
+// each lane keeps its own first strict minimum and the lexicographic
+// (t, row) order is total on the values that can be kept (a NaN t is never
+// below anything); the owner takes the result only if it is strictly below
+// its best, so a sphere and earlier leaves win ties as before.
 //
 // Numerics (the contract with rtm_tpu's kernel, trav_kernel.py:546-639):
 // a triangle passes when min(det - DET_EPS, tdet, udet, vdet, det - udet -
@@ -61,7 +88,10 @@ using namespace rtm;
 namespace {
 
 constexpr int BLOCK = 128;
-constexpr int TF = 12;  // f32 per triangle row: A, AB, AC, shading normal
+constexpr int TF = 12;           // f32 per triangle row: A, AB, AC, normal
+constexpr int MAX_NODES = 1024;  // the 10-bit skip links (trav_kernel.py)
+constexpr uint32_t FULL = 0xffffffffu;
+constexpr int NO_ROW = 0x7fffffff;
 
 struct Params {
   const float* camf;
@@ -87,77 +117,140 @@ __device__ __forceinline__ float bf16_hi(int w) {
   return __uint_as_float((uint32_t)w & 0xFFFF0000u);
 }
 
-// Skip-link descent for one ray: on return `best` is the nearest accepted
-// t (unchanged when no triangle beats its start value) and `win` the
-// winner's tri_feat row, or -1.
-__device__ __forceinline__ void trav_nearest(const Params& p, V3 o, V3 d,
+// The posted leaf of lane `owner` (rows base .. base + cnt - 1), tested by
+// the whole warp: lane j takes rows k = j, j + 32, ... and keeps its first
+// strict minimum below the owner's best; the reduction keeps the least t,
+// the lower k on equal t.  The owner takes it when strictly below its best.
+// Every lane of the warp calls this with the same owner.
+__device__ __forceinline__ void drain_leaf(const Params& p, int owner,
+                                           int base, int cnt, V3 o, V3 d,
+                                           float& best, int& win) {
+  const int lane = threadIdx.x & 31;
+  const int lb = __shfl_sync(FULL, base, owner);
+  const int lc = __shfl_sync(FULL, cnt, owner);
+  const float ox = __shfl_sync(FULL, o.x, owner);
+  const float oy = __shfl_sync(FULL, o.y, owner);
+  const float oz = __shfl_sync(FULL, o.z, owner);
+  const float dx = __shfl_sync(FULL, d.x, owner);
+  const float dy = __shfl_sync(FULL, d.y, owner);
+  const float dz = __shfl_sync(FULL, d.z, owner);
+  float tl = __shfl_sync(FULL, best, owner);
+  int kl = NO_ROW;
+  for (int k = lane; k < lc; k += 32) {
+    const float4* f =
+        reinterpret_cast<const float4*>(p.tri_feat + (size_t)(lb + k) * TF);
+    const float4 f0 = __ldg(f), f1 = __ldg(f + 1), f2 = __ldg(f + 2);
+    const float abx = f0.w, aby = f1.x, abz = f1.y;
+    const float acx = f1.z, acy = f1.w, acz = f2.x;
+    const float aox = ox - f0.x;
+    const float aoy = oy - f0.y;
+    const float aoz = oz - f0.z;
+    const float nx = aby * acz - abz * acy;
+    const float ny = abz * acx - abx * acz;
+    const float nz = abx * acy - aby * acx;
+    const float det = -(dx * nx + dy * ny + dz * nz);
+    const float tdet = aox * nx + aoy * ny + aoz * nz;
+    const float dax = aoy * dz - aoz * dy;
+    const float day = aoz * dx - aox * dz;
+    const float daz = aox * dy - aoy * dx;
+    const float udet = acx * dax + acy * day + acz * daz;
+    const float vdet = -(abx * dax + aby * day + abz * daz);
+    const float wdet = det - udet - vdet;
+    const float mm = fminf(fminf(det - DET_EPS, tdet),
+                           fminf(fminf(udet, vdet), wdet));
+    if (mm >= 0.0f) {
+      const float t = tdet / fmaxf(det, DET_EPS);
+      if (t < tl) {
+        tl = t;
+        kl = k;
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) {
+    const float t2 = __shfl_xor_sync(FULL, tl, m);
+    const int k2 = __shfl_xor_sync(FULL, kl, m);
+    if (t2 < tl || (t2 == tl && k2 < kl)) {
+      tl = t2;
+      kl = k2;
+    }
+  }
+  if (lane == owner && tl < best) {
+    best = tl;
+    win = lb + kl;
+  }
+}
+
+// Skip-link descent for one ray over the staged node table: on return
+// `best` is the nearest accepted t (unchanged when no triangle beats its
+// start value) and `win` the winner's tri_feat row, or -1.  A lane that is
+// not `live` walks no node but joins the warp's leaf tests; every lane of
+// the warp calls this.
+__device__ __forceinline__ void trav_nearest(const Params& p,
+                                             const int4* __restrict__ nodes,
+                                             bool live, V3 o, V3 d,
                                              float& best, int& win,
                                              int& visits, int& tests) {
   const float inv_dx = safe_inv(d.x), inv_dy = safe_inv(d.y),
               inv_dz = safe_inv(d.z);
-  int cur = 0;
-  while (cur < p.n_nodes) {
-    const int4 nd = __ldg(p.node + cur);
-    const float t1x = (bf16_lo(nd.x) - o.x) * inv_dx;
-    const float t2x = (bf16_hi(nd.x) - o.x) * inv_dx;
-    const float t1y = (bf16_lo(nd.y) - o.y) * inv_dy;
-    const float t2y = (bf16_hi(nd.y) - o.y) * inv_dy;
-    const float t1z = (bf16_lo(nd.z) - o.z) * inv_dz;
-    const float t2z = (bf16_hi(nd.z) - o.z) * inv_dz;
-    const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
-                           fminf(t1z, t2z));
-    const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                           fmaxf(t1z, t2z));
-    const float near = (tf >= 0.0f && tn <= tf) ? tn : BIG;
-    ++visits;
-    const uint32_t info = (uint32_t)nd.w;
-    const int leaf1 = (int)((info >> 10) & 0x3FFu);
-    if (near < best) {
-      if (leaf1 == 0) {  // internal: its first child is next in preorder
+  int cur = live ? 0 : p.n_nodes;
+  for (;;) {
+    bool posted = false;
+    int base = 0, cnt = 0;
+    while (cur < p.n_nodes) {
+      const int4 nd = nodes[cur];
+      const float t1x = (bf16_lo(nd.x) - o.x) * inv_dx;
+      const float t2x = (bf16_hi(nd.x) - o.x) * inv_dx;
+      const float t1y = (bf16_lo(nd.y) - o.y) * inv_dy;
+      const float t2y = (bf16_hi(nd.y) - o.y) * inv_dy;
+      const float t1z = (bf16_lo(nd.z) - o.z) * inv_dz;
+      const float t2z = (bf16_hi(nd.z) - o.z) * inv_dz;
+      const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
+                             fminf(t1z, t2z));
+      const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
+                             fmaxf(t1z, t2z));
+      const float near = (tf >= 0.0f && tn <= tf) ? tn : BIG;
+      ++visits;
+      const uint32_t info = (uint32_t)nd.w;
+      const int leaf1 = (int)((info >> 10) & 0x3FFu);
+      if (near < best && leaf1 == 0) {  // internal: first child is next
         ++cur;
         continue;
       }
-      const int cnt = (int)((info >> 20) & 0xFFFu);
-      const int base = (leaf1 - 1) * p.leaf_k;
-      tests += cnt;
-      for (int k = 0; k < cnt; ++k) {
-        const float4* f =
-            reinterpret_cast<const float4*>(p.tri_feat + (size_t)(base + k) * TF);
-        const float4 f0 = __ldg(f), f1 = __ldg(f + 1), f2 = __ldg(f + 2);
-        const float abx = f0.w, aby = f1.x, abz = f1.y;
-        const float acx = f1.z, acy = f1.w, acz = f2.x;
-        const float aox = o.x - f0.x;
-        const float aoy = o.y - f0.y;
-        const float aoz = o.z - f0.z;
-        const float nx = aby * acz - abz * acy;
-        const float ny = abz * acx - abx * acz;
-        const float nz = abx * acy - aby * acx;
-        const float det = -(d.x * nx + d.y * ny + d.z * nz);
-        const float tdet = aox * nx + aoy * ny + aoz * nz;
-        const float dax = aoy * d.z - aoz * d.y;
-        const float day = aoz * d.x - aox * d.z;
-        const float daz = aox * d.y - aoy * d.x;
-        const float udet = acx * dax + acy * day + acz * daz;
-        const float vdet = -(abx * dax + aby * day + abz * daz);
-        const float wdet = det - udet - vdet;
-        const float mm = fminf(fminf(det - DET_EPS, tdet),
-                               fminf(fminf(udet, vdet), wdet));
-        if (mm >= 0.0f) {
-          const float t = tdet / fmaxf(det, DET_EPS);
-          if (t < best) {
-            best = t;
-            win = base + k;
-          }
-        }
+      cur = (int)(info & 0x3FFu);
+      if (near < best) {  // a leaf: post it and wait for the warp
+        cnt = (int)((info >> 20) & 0xFFFu);
+        base = (leaf1 - 1) * p.leaf_k;
+        tests += cnt;
+        posted = true;
+        break;
       }
     }
-    cur = (int)(info & 0x3FFu);
+    uint32_t todo = __ballot_sync(FULL, posted);
+    if (todo == 0u) return;  // every lane is past its last node
+    do {
+      const int owner = __ffs(todo) - 1;
+      todo &= todo - 1u;
+      drain_leaf(p, owner, base, cnt, o, d, best, win);
+    } while (todo != 0u);
   }
 }
 
 __global__ void __launch_bounds__(BLOCK) trav_trace_kernel(const Params p) {
-  const int slot = blockIdx.x * BLOCK + threadIdx.x;
-  if (slot >= p.n) return;
+  __shared__ int4 s_node[MAX_NODES];
+  for (int i = threadIdx.x; i < p.n_nodes; i += BLOCK)
+    s_node[i] = __ldg(p.node + i);
+  __syncthreads();
+
+  // Thread t of the first 32 * cols threads traces slot (t % 32) * cols +
+  // t / 32 (a transpose: a warp's 32 slots lie cols apart), the rest slot
+  // t.  A tail thread traces the last slot's ray and writes nothing, so
+  // that every lane reaches the warp's leaf tests.
+  const int t = (int)(blockIdx.x * BLOCK + threadIdx.x);
+  const int full = p.n & ~31, cols = full >> 5;
+  const bool real = t < p.n;
+  const int slot =
+      t < full ? (t & 31) * cols + (t >> 5) : (real ? t : p.n - 1);
   const size_t n = (size_t)p.n;
   int xpix, ypix;
   slot_pixel(p.pix0 + slot, p.width, p.block8, xpix, ypix);
@@ -189,10 +282,11 @@ __global__ void __launch_bounds__(BLOCK) trav_trace_kernel(const Params p) {
       float t_hit = t_sph;
       int winfo = NO_TEX << 8;
       V3 w_sn = {0.0f, 0.0f, 0.0f};
-      if (have_tris && s.alive) {
+      if (have_tris) {  // uniform: the whole warp walks together
         float best = t_sph;
         int win = -1;
-        trav_nearest(p, s.o, s.d, best, win, visits, tests);
+        trav_nearest(p, s_node, real && s.alive, s.o, s.d, best, win,
+                     visits, tests);
         if (win >= 0) {
           use_tri = true;
           t_hit = best;
@@ -205,14 +299,15 @@ __global__ void __launch_bounds__(BLOCK) trav_trace_kernel(const Params p) {
       float rec[8];
       shade_tail(p.tabs, have_tris, have_sph, textured, use_tri, t_hit, winfo,
                  w_sn, s_idx, s, rec);
-      if (textured) {
+      if (textured && real) {
         float* rr = p.rec + (size_t)(((frame - 1) * p.bounces + b) * 8) * n + slot;
 #pragma unroll
         for (int j = 0; j < 8; ++j) rr[j * n] = rec[j];
       }
     }
-    write_miss(p.miss + (size_t)((frame - 1) * 8) * n + slot, n, s);
+    if (real) write_miss(p.miss + (size_t)((frame - 1) * 8) * n + slot, n, s);
   }
+  if (!real) return;
   p.color[0 * n + slot] = s.col_r;
   p.color[1 * n + slot] = s.col_g;
   p.color[2 * n + slot] = s.col_b;
@@ -253,6 +348,7 @@ extern "C" int trav_trace_launch(const float* camf, uint32_t frame_index,
   p.miss = miss;
   p.rec = rec;
   p.stats = stats;
+  if (n_nodes > MAX_NODES) return (int)cudaErrorInvalidValue;
   const int grid = (n + BLOCK - 1) / BLOCK;
   trav_trace_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();

@@ -40,6 +40,9 @@
 // test of the walk they replace.  `sweep_block`, the pair pass, skips per
 // warp the rows none of its lanes can hit and divides only behind the gate.
 // What is left is the heavy tiles' pair passes on one SM each (PERF.md).
+// The intersect kernel runs the same prefilter (`mark_candidates`, every
+// ray of its tile counting) over its own (8, C) box table, and its strict
+// pair pass `strict_block` skips rows per warp the same way.
 #pragma once
 
 #include <cstdint>
@@ -97,21 +100,6 @@ __device__ __forceinline__ void udet_vdet(const SweepRay& r,
          (r.wx * f[F_ABX] + r.wy * f[F_ABY] + r.wz * f[F_ABZ]);
 }
 
-// The round-1 intersect kernel's pair test (intersect_kernel.py:156-163):
-// det > eps and every other determinant >= 0, t = tdet / det exactly;
-// `miss` when invalid.
-__device__ __forceinline__ float strict_pair_t(const SweepRay& r,
-                                               const float* __restrict__ f,
-                                               float miss) {
-  float det, tdet, udet, vdet;
-  det_tdet(r, f, det, tdet);
-  udet_vdet(r, f, udet, vdet);
-  const float wdet = det - udet - vdet;
-  const bool valid = det > SWEEP_DET_EPS && tdet >= 0.0f && udet >= 0.0f &&
-                     vdet >= 0.0f && wdet >= 0.0f;
-  return valid ? tdet / det : miss;
-}
-
 // NaN-safe slab reciprocals (megakernel._safe_inv_dirs): |d| clamped away
 // from 0, sign kept.
 __device__ __forceinline__ float sweep_safe_inv(float d) {
@@ -156,18 +144,33 @@ __device__ __forceinline__ void stage_rows(float* __restrict__ dst,
 }
 
 // One cluster pass of the intersect kernel's sweep for this thread's ray:
-// rows [0, rows) of the staged shared-memory block, table rows row0 + k.  A
-// row replaces the best only when strictly below it, so the lowest row wins
-// ties.
+// rows [0, rows) of the staged shared-memory block, table rows row0 + k.
+// The pair test (intersect_kernel.py:156-163): det > eps and tdet, udet,
+// vdet, wdet >= 0, t = tdet / det exactly; a row replaces the best only
+// when strictly below it, so the lowest row wins ties.  A row whose gate
+// fails has t = FLT_MAX in rtm_tpu, which never replaces the best (best <=
+// FLT_MAX always), so two skips are exact: a warp in which no lane has
+// det > eps and tdet >= 0 drops the row (the whole block calls this with
+// the same rows), and the division runs only behind the gate.
 __device__ __forceinline__ void strict_block(const float* __restrict__ rows_sm,
                                              int rows, int row0,
-                                             const SweepRay& r, float miss,
-                                             float& best_t, int& best_i) {
+                                             const SweepRay& r, float& best_t,
+                                             int& best_i) {
+#pragma unroll 4
   for (int k = 0; k < rows; ++k) {
-    const float t = strict_pair_t(r, rows_sm + k * NFEAT, miss);
-    if (t < best_t) {
-      best_t = t;
-      best_i = row0 + k;
+    const float* f = rows_sm + k * NFEAT;
+    float det, tdet, udet, vdet;
+    det_tdet(r, f, det, tdet);
+    const bool front = det > SWEEP_DET_EPS && tdet >= 0.0f;
+    if (!__any_sync(0xffffffffu, front)) continue;
+    udet_vdet(r, f, udet, vdet);
+    const float wdet = det - udet - vdet;
+    if (front && udet >= 0.0f && vdet >= 0.0f && wdet >= 0.0f) {
+      const float t = tdet / det;
+      if (t < best_t) {
+        best_t = t;
+        best_i = row0 + k;
+      }
     }
   }
 }
@@ -237,13 +240,42 @@ struct BoxScratch {
   uint32_t mask[CB / 32];
 };
 
-// slab_near of this thread's ray to staged cluster j.
+// slab_near of this thread's ray to staged cluster j; `miss` on a miss.
 __device__ __forceinline__ float staged_near(const BoxScratch& sc, int j,
                                              const SweepRay& r, float inv_dx,
-                                             float inv_dy, float inv_dz) {
+                                             float inv_dy, float inv_dz,
+                                             float miss) {
   const float4 a = sc.box[2 * j], b = sc.box[2 * j + 1];
   return slab_near(a.x, a.y, a.z, a.w, b.x, b.y, r, inv_dx, inv_dy, inv_dz,
-                   SWEEP_BIG);
+                   miss);
+}
+
+// The prefilter over one staged chunk of `cnt` clusters: the lanes of this
+// warp whose bit of `lane_bits` is set test their rays against every staged
+// box, and lane 0 ORs the clusters some of them enter at all (slab_near
+// below `miss`) into the block's candidate mask, one word per 32 clusters
+// (__reduce_or_sync; no barrier per cluster).  The caller zeroes the mask
+// and brackets this with barriers; every lane of the warp calls it.
+__device__ __forceinline__ void mark_candidates(BoxScratch& sc, int cnt,
+                                                const SweepRay& r,
+                                                float inv_dx, float inv_dy,
+                                                float inv_dz,
+                                                uint32_t lane_bits,
+                                                float miss) {
+  const int words = (cnt + 31) >> 5;
+  for (int w = 0; w < words; ++w) {
+    const int kn = min(32, cnt - w * 32);
+    uint32_t bits = 0u;
+#pragma unroll 4
+    for (int k = 0; k < kn; ++k)
+      bits |= (staged_near(sc, w * 32 + k, r, inv_dx, inv_dy, inv_dz, miss) <
+                       miss
+                   ? 1u
+                   : 0u)
+              << k;
+    bits = __reduce_or_sync(0xffffffffu, bits & lane_bits);
+    if ((threadIdx.x & 31) == 0 && bits != 0u) atomicOr(sc.mask + w, bits);
+  }
 }
 
 // The static-order sweep of one ray tile (one thread block) over the SAH
@@ -290,26 +322,15 @@ __device__ __forceinline__ int sweep_clusters(
       s_box[i] = __ldg(boxes + (long)c0 * 8 + i);
     for (int w = threadIdx.x; w < words; w += blockDim.x) sc.mask[w] = 0u;
     __syncthreads();
-    if (warp_alive) {
-      for (int w = 0; w < words; ++w) {
-        const int kn = min(32, cnt - w * 32);
-        uint32_t bits = 0u;
-#pragma unroll 4
-        for (int k = 0; k < kn; ++k)
-          bits |= (staged_near(sc, w * 32 + k, r, inv_dx, inv_dy, inv_dz) <
-                           SWEEP_BIG
-                       ? 1u
-                       : 0u)
-                  << k;
-        bits = __reduce_or_sync(0xffffffffu, bits & alive_bits);
-        if ((threadIdx.x & 31) == 0 && bits != 0u) atomicOr(sc.mask + w, bits);
-      }
-    }
+    if (warp_alive)
+      mark_candidates(sc, cnt, r, inv_dx, inv_dy, inv_dz, alive_bits,
+                      SWEEP_BIG);
     __syncthreads();
     for (int w = 0; w < words; ++w) {
       for (uint32_t bits = sc.mask[w]; bits != 0u; bits &= bits - 1u) {
         const int j = w * 32 + __ffs(bits) - 1;
-        const float near = staged_near(sc, j, r, inv_dx, inv_dy, inv_dz);
+        const float near =
+            staged_near(sc, j, r, inv_dx, inv_dy, inv_dz, SWEEP_BIG);
         if (!__syncthreads_or(alive && near < best_t)) continue;
         ++n_pass;
         sweep_cluster(feats, __ldg(offsets + c0 + j), __ldg(widths + c0 + j),

@@ -9,7 +9,9 @@ below its running best t.
 
 Two implementations of one contract (`intersect_sweep`):
   * the CUDA kernel (csrc/intersect_sweep.cu over csrc/tri_sweep.cuh), one
-    thread per ray, a passed cluster's features staged in shared memory;
+    thread per ray, the cull run over the clusters some ray of the tile
+    enters at all (a candidate prefilter), a passed cluster's real rows
+    staged in shared memory;
   * the plain version `intersect_sweep_plain`, vectorised over rays with a
     Python loop over clusters and the same tile-uniform skip.
 The wrapper takes the plain version only for CPU tensors; for CUDA tensors
@@ -71,14 +73,18 @@ def pack_triangle_features(a, b, c):
 def intersect_sweep_plain(rays, feats, boxes, n_clusters: int,
                           ray_tile: int = DEFAULT_RAY_TILE, cull: bool = True,
                           return_passes: bool = False,
-                          with_passed: bool = False):
+                          with_passed: bool = False, n_tris=None):
     """Plain PyTorch version of the kernel: rays (N,16) [o, d, w = o x d,
     0...] with N % ray_tile == 0, feats (16, C*128), boxes (8, C) rows
     lo.xyz, hi.xyz, 0, 0.  Returns (t (N,) f32, FLT_MAX on miss, idx (N,)
     i32, -1 on miss), then the cluster passes per tile (N/ray_tile,) i32
     when return_passes, and which clusters each tile swept (N/ray_tile, C)
-    bool when with_passed."""
+    bool when with_passed.  n_tris: the real triangle rows (the rest are
+    padding and are not tested; every row when None).  Padding rows never
+    pass the gate, so n_tris changes no output."""
     n = rays.shape[0]
+    if n_tris is None:
+        n_tris = n_clusters * CLUSTER
     dev = rays.device
     tiles = n // ray_tile
     ox, oy, oz, dx, dy, dz, wx, wy, wz = (rays[:, k:k + 1] for k in range(9))
@@ -103,7 +109,10 @@ def intersect_sweep_plain(rays, feats, boxes, n_clusters: int,
             passes += 1
             passed[:, c] = True
             lane_go = None
-        f = feats[:, c * CLUSTER:(c + 1) * CLUSTER]
+        width = min(CLUSTER, n_tris - c * CLUSTER)
+        if width <= 0:
+            continue
+        f = feats[:, c * CLUSTER:c * CLUSTER + width]
         nx, ny, nz, an = f[0:1], f[1:2], f[2:3], f[3:4]
         det = -(dx * nx + dy * ny + dz * nz)
         tdet = ox * nx + oy * ny + oz * nz - an
@@ -116,7 +125,7 @@ def intersect_sweep_plain(rays, feats, boxes, n_clusters: int,
                  & (vdet >= 0.0) & (wdet >= 0.0))
         t = torch.where(valid, tdet / torch.where(valid, det, 1.0), FLT_MAX)
         tmin = t.amin(dim=1, keepdim=True)
-        in_idx = torch.where(t == tmin, col, 2 ** 30).amin(
+        in_idx = torch.where(t == tmin, col[:, :width], 2 ** 30).amin(
             dim=1, keepdim=True) + c * CLUSTER
         better = tmin < best_t
         if lane_go is not None:
@@ -131,21 +140,25 @@ def intersect_sweep_plain(rays, feats, boxes, n_clusters: int,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _I, ctypes.c_long, _I, _I, _P, _P, _P, _P]
+_ARGTYPES = [_P, _P, _P, _I, _I, ctypes.c_long, _I, _I, _P, _P, _P, _P]
 
 
 def intersect_sweep(rays, feats, boxes, n_clusters: int,
                     ray_tile: int = DEFAULT_RAY_TILE, cull: bool = True,
-                    return_passes: bool = False):
+                    return_passes: bool = False, n_tris=None):
     """The sweep of `intersect_sweep_plain`'s contract.  CPU tensors go to
     the plain version; CUDA tensors launch the kernel of
     csrc/intersect_sweep.cu (built at first use) and raise on arguments it
-    does not take and on any launch error.  `intersect_sweep.launches`
-    counts the kernel launches."""
+    does not take and on any launch error.  n_tris (the real triangle rows
+    of the table, every row when None) lets the kernel skip the padding.
+    `intersect_sweep.launches` counts the kernel launches."""
     dev = rays.device
+    if n_tris is None:
+        n_tris = n_clusters * CLUSTER
     if dev.type == "cpu":
         return intersect_sweep_plain(rays, feats, boxes, n_clusters,
-                                     ray_tile, cull, return_passes)
+                                     ray_tile, cull, return_passes,
+                                     n_tris=n_tris)
     if dev.type != "cuda":
         raise ValueError(f"intersect_sweep: unsupported device {dev}")
     n = int(rays.shape[0]) if rays.dim() == 2 else -1
@@ -158,6 +171,9 @@ def intersect_sweep(rays, feats, boxes, n_clusters: int,
                          f"{tuple(rays.shape)}")
     if n_clusters <= 0:
         raise ValueError("intersect_sweep: need n_clusters > 0")
+    if not 0 <= n_tris <= n_clusters * CLUSTER:
+        raise ValueError(f"intersect_sweep: n_tris must be in [0, "
+                         f"{n_clusters * CLUSTER}]; got {n_tris}")
     chk = lambda *a: check_arg("intersect_sweep", *a)  # noqa: E731
     chk("rays", rays, torch.float32, (n, 16), dev)
     chk("feats", feats, torch.float32, (NUM_FEATURES, n_clusters * CLUSTER),
@@ -174,7 +190,7 @@ def intersect_sweep(rays, feats, boxes, n_clusters: int,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(rays.data_ptr(), feats.data_ptr(), boxes.data_ptr(),
-                 n_clusters, n, ray_tile, int(bool(cull)), t.data_ptr(),
+                 n_clusters, int(n_tris), n, ray_tile, int(bool(cull)), t.data_ptr(),
                  idx.data_ptr(), None if passes is None else passes.data_ptr(),
                  stream)
     if err != 0:
@@ -226,5 +242,5 @@ def nearest_triangle_pallas(origin, direction, tri_a, tri_b, tri_c,
                           dim=0).contiguous()
         rays = pack_rays(origin.detach(), direction.detach(), ray_tile)
         t, idx = intersect_sweep(rays, feats, boxes, n_clusters, ray_tile,
-                                 cull)
+                                 cull, n_tris=tri_a.shape[0])
     return t[:n], idx[:n]

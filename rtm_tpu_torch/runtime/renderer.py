@@ -55,12 +55,16 @@ def render_progressive(scene: TracerScene, cam, cfg: RenderConfig,
 
 
 class ProgressiveRenderer:
-    """Host-side session state (scene + camera + accumulation)."""
+    """Host-side session state (scene + camera + accumulation).  `backend`
+    is handed to every `accumulate_step`: "auto" (the kernels) by default,
+    while rtm_tpu's renderer always takes its default, "xla"."""
 
     def __init__(self, scene, camera: Camera | None = None,
-                 cfg: RenderConfig | None = None, device=None):
+                 cfg: RenderConfig | None = None, device=None,
+                 backend: str = "auto"):
         self.cfg = cfg or RenderConfig()
         self.camera = camera or Camera()
+        self.backend = backend
         self.scene = (scene if isinstance(scene, TracerScene)
                       else build_tracer_scene(scene, device=device))
         self.frame_index = 0
@@ -112,7 +116,8 @@ class ProgressiveRenderer:
         self.frame_index = self.frame_index + 1 if self.cfg.accumulate else 1
         cam_spec = self.camera.spec(self.cfg.width, self.cfg.height)
         self.accum, out = accumulate_step(self.scene, cam_spec, self.accum,
-                                          self.frame_index, self.cfg)
+                                          self.frame_index, self.cfg,
+                                          backend=self.backend)
         return out
 
     def render(self, frames: int = 1) -> torch.Tensor:

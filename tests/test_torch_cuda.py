@@ -252,6 +252,152 @@ def test_trav_render_dispatch_on_the_card(cuda):
     assert (diff > 0.2).mean() <= 0.003
 
 
+# The trav kernel's warp-cooperative leaf tests (csrc/trav_trace.cu
+# drain_leaf), held bitwise to the plain version on every output and every
+# slot's stats.  dragon_grid(6)'s 720 triangle rows are re-cut into a flat
+# skip-link tree (a root over every leaf, then one leaf per FLAT_LEAVES
+# count), so leaves of 1, 31, 32, 33 and 256 rows are tested.  The camera
+# at (1.25, 0, 5) looks straight down -z at one instance: the centre
+# column's rays have dx = 0 exactly and the centre pixel's is (0, 0, -1).
+TRAV_EDGES = ("lone_lane", "tie", "leaf_sizes", "tail_window", "axis_nan")
+FLAT_LEAVES = (1, 31, 32, 33, 256, 256, 111)
+TIE_LEAF = FLAT_LEAVES.index(256)
+
+
+def _flat_trav(st, tie=False, nan_every=0):
+    """`st` with its trav tables re-cut into FLAT_LEAVES (rows in table
+    order).  tie: in the first 256-row leaf, row 2j + 1 repeats row 2j
+    (j < 64; two lanes) and row 160 + j repeats row 128 + j (j < 32; one
+    lane, a step apart), each copy with another shading normal, so equal t
+    at two rows must go to the lower row.  nan_every: a NaN shading normal
+    on every such row, so the rays that hit one scatter into NaN rays."""
+    ta, tm = st.trav_arrays, st.trav_meta
+    feat = ta.tri_feat.cpu().numpy()
+    info = ta.tri_info.cpu().numpy()
+    real = np.abs(feat[:, 3:9]).sum(axis=1) > 0
+    feat, info = feat[real], info[real]
+    assert len(feat) == sum(FLAT_LEAVES)
+    nl, kk = len(FLAT_LEAVES), max(FLAT_LEAVES)
+    tf = np.zeros((nl, kk, ttk.TF_ROWS), np.float32)
+    ti = np.full((nl, kk), int(info.max()) | 255 << 8, np.int32)
+    ends = np.cumsum((0,) + FLAT_LEAVES)
+    for leaf, c in enumerate(FLAT_LEAVES):
+        tf[leaf, :c] = feat[ends[leaf]:ends[leaf + 1]]
+        ti[leaf, :c] = info[ends[leaf]:ends[leaf + 1]]
+    if tie:
+        for lo, hi in ((slice(0, 128, 2), slice(1, 128, 2)),
+                       (slice(128, 160), slice(160, 192))):
+            tf[TIE_LEAF, hi] = tf[TIE_LEAF, lo]
+            tf[TIE_LEAF, hi, 9:12] = np.float32([0.6, 0.0, 0.8])
+            ti[TIE_LEAF, hi] = ti[TIE_LEAF, lo]
+    if nan_every:
+        tf.reshape(-1, ttk.TF_ROWS)[::nan_every, 9:12] = np.nan
+    n_nodes = nl + 1
+    box = np.zeros((6, n_nodes), np.float32)
+    for leaf, c in enumerate(FLAT_LEAVES):
+        a = tf[leaf, :c, 0:3]
+        v = np.concatenate([a, a + tf[leaf, :c, 3:6], a + tf[leaf, :c, 6:9]])
+        box[:3, leaf + 1], box[3:, leaf + 1] = v.min(axis=0), v.max(axis=0)
+    box[:3, 0], box[3:, 0] = box[:3, 1:].min(axis=1), box[3:, 1:].max(axis=1)
+    node = np.zeros((n_nodes, 4), np.int32)
+    node[:, 0:3] = ttk._pack_box_bf16(box).T
+    skip = np.arange(1, n_nodes + 1)
+    skip[0] = n_nodes
+    node[:, 3] = (skip | np.arange(n_nodes) << 10
+                  | np.array((0,) + FLAT_LEAVES) << 20)
+    dev = st.device
+    arrays = ttk.TravArrays(
+        torch.from_numpy(node).to(dev),
+        torch.from_numpy(tf.reshape(-1, ttk.TF_ROWS)).to(dev),
+        torch.from_numpy(ti.reshape(-1)).to(dev))
+    return dataclasses.replace(st, trav_arrays=arrays, trav_meta=tm._replace(
+        n_nodes=n_nodes, n_leaves=nl, leaf_k=kk))
+
+
+def _trav_edge_case(edge, device):
+    """(scene, side tables, camf, cfg, pixel offset, slots) of one edge
+    case at 64x64.  lone_lane: a 97-slot window, so the last warp holds one
+    slot (the centre pixel) beside 31 tail lanes; tail_window: 3969 slots
+    from slot 77 of the SAH-cut tables, 2 frames."""
+    st = _scene("grid6", device)
+    cam = rtm_tpu_torch.Camera()
+    cam.position = np.array([1.25, 0.0, 5.0])
+    if edge != "tail_window":
+        st = _flat_trav(st, tie=edge == "tie",
+                        nan_every=5 if edge == "axis_nan" else 0)
+    w = h = 64
+    frames = 2 if edge == "tail_window" else 1
+    cfg = rtm_tpu_torch.RenderConfig(width=w, height=h, max_bounces=4,
+                                     max_frames=frames, draw_environment=True)
+    camf = _pack_camera(cam.spec(w, h), device)
+    centre = 36 * 64                 # the slot of pixel (32, 32), 8x8 blocks
+    pix0, n = {"lone_lane": (centre - 96, 97),
+               "tail_window": (77, w * h - 127)}.get(edge, (0, w * h))
+    return st, ttk.trav_side_tables(st), camf, cfg, pix0, n
+
+
+def _trav_edge_run(edge, device, kernel=True):
+    """(kernel outputs or None, plain outputs, the plain descent's winning
+    rows and the leaf sizes it tested) of one edge case."""
+    from unittest import mock
+
+    st, tabs, camf, cfg, pix0, n = _trav_edge_case(edge, device)
+    k = None
+    if kernel:
+        before = ttk.trav_trace.launches
+        k = ttk.trav_trace(st, tabs, camf, 1, pix0, n, cfg, with_stats=True)
+        assert ttk.trav_trace.launches == before + 1
+    rows, sizes = [], set()
+    nearest, leaf_tests = ttk.trav_nearest_plain, ttk._leaf_tests
+
+    def rec_nearest(*a):
+        out = nearest(*a)
+        rows.append(out[2][out[0]])
+        return out
+
+    def rec_leaves(ta, el, base, cnt, *a):
+        sizes.update(int(c) for c in cnt.unique())
+        return leaf_tests(ta, el, base, cnt, *a)
+
+    with mock.patch.object(ttk, "trav_nearest_plain", rec_nearest), \
+            mock.patch.object(ttk, "_leaf_tests", rec_leaves):
+        p = ttk.trav_trace_plain(st, tabs, camf, 1, pix0, n, cfg,
+                                 with_stats=True)
+    return k, p, torch.cat(rows).cpu(), sizes
+
+
+def _trav_edge_holds(edge, p, rows, sizes):
+    """What each edge case must exercise, read from the plain version."""
+    stats = p[3]
+    assert int(stats[1].sum()) > 0
+    if edge == "lone_lane":
+        assert int(stats[1, -1]) > 0
+    if edge == "tie":
+        base = TIE_LEAF * max(FLAT_LEAVES)
+        low = torch.cat([torch.arange(0, 128, 2), torch.arange(128, 160)])
+        high = torch.cat([torch.arange(1, 128, 2), torch.arange(160, 192)])
+        assert bool(torch.isin(rows, low + base).any())
+        assert not bool(torch.isin(rows, high + base).any())
+    if edge == "leaf_sizes":
+        assert {1, 31, 32, 33, 256} <= sizes
+    if edge == "axis_nan":
+        assert bool(torch.isnan(p[1]).any())
+        assert int(stats[0, 36 * 64]) > 0
+
+
+@pytest.mark.parametrize("edge", TRAV_EDGES)
+def test_trav_warp_leaf_edges_bitwise(cuda, edge):
+    k, p, rows, sizes = _trav_edge_run(edge, cuda)
+    torch.cuda.synchronize()
+    for a, b in zip(k[:3], p[:3]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=0.0, atol=0.0,
+                                       equal_nan=True)
+    assert torch.equal(k[3], p[3])
+    _trav_edge_holds(edge, p, rows, sizes)
+
+
 # The cluster-sweep and intersect kernels.  Both compute the plain version's
 # f32 operations in the same order (--fmad=false, IEEE division), so the
 # winners agree on every lane of these bands; the bound kept is rtm_tpu's
@@ -328,6 +474,92 @@ def test_intersect_kernel_matches_plain(cuda, sid):
         assert float((passes == pp).float().mean()) >= 0.99
         same = i == pi
         assert torch.allclose(t[same], pt[same], rtol=1e-6, atol=0.0)
+
+
+# The intersect kernel's real-rows sweep and candidate prefilter (csrc/
+# intersect_sweep.cu), held bitwise to the plain version, which tests every
+# row (padding included) and walks every cluster: t, the winner and the
+# per-tile passes on every lane.
+INTERSECT_EDGES = ("scene3", "full_clusters", "many_clusters", "no_box",
+                   "nan_rays")
+
+
+def _slab_triangles(n_tris, seed):
+    """n_tris small random triangles whose centres run along x in buffer
+    order, so each 128-row cluster is a thin slab of the row [0, n_tris/8)."""
+    rs = np.random.default_rng(seed)
+    ctr = np.stack([np.sort(rs.uniform(0.0, n_tris / 8.0, n_tris)),
+                    rs.uniform(-1.0, 1.0, n_tris),
+                    rs.uniform(-1.0, 1.0, n_tris)], axis=1)
+    a, b, c = (ctr + rs.normal(0.0, 0.2, (n_tris, 3)) for _ in range(3))
+    return [torch.from_numpy(x.astype(np.float32)) for x in (a, b, c)]
+
+
+def _intersect_edge_case(edge, device):
+    """(rays (N, 16), feats, boxes, clusters, real rows) of one edge case:
+    scene 3's 64x64 wavefront2 bands (one cluster, 34 rows); the first 640
+    triangles of dragon_grid(6) (5 full clusters) on that scene's bands;
+    600 clusters of slab triangles (two box chunks) with rays along the
+    row; and dragon_grid(6) with even tiles far out heading away (no box)
+    or with NaN origins and directions (tile 3 all NaN)."""
+    from rtm_tpu_torch.ops.kernels import intersect_kernel as ik
+
+    if edge == "many_clusters":
+        tris = [t.to(device) for t in _slab_triangles(600 * 128, 5)]
+        rs = np.random.default_rng(6)
+        o = np.stack([rs.uniform(0.0, 9600.0, 4096), rs.uniform(-1, 1, 4096),
+                      rs.uniform(-1, 1, 4096)], axis=1)
+        d = rs.normal(size=(4096, 3)) * np.float64([4.0, 1.0, 1.0])
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        o, d = (torch.from_numpy(x.astype(np.float32)).to(device)
+                for x in (o, d))
+    else:
+        st = _scene(3 if edge == "scene3" else "grid6", device)
+        tris = [st.tri_wa, st.tri_wb, st.tri_wc]
+        if edge == "full_clusters":
+            tris = [t[:640] for t in tris]
+        state8 = torch.cat(_bands(st, res=64, bounces=2), dim=1)
+        o, d = state8[0:3].T.contiguous(), state8[3:6].T.contiguous()
+        if edge == "no_box":
+            for tile in range(0, o.shape[0] // 256, 2):
+                lanes = slice(tile * 256, (tile + 1) * 256)
+                o[lanes] += 1e4
+                d[lanes] = d[lanes].abs()
+        if edge == "nan_rays":
+            o[0::14, 0] = float("nan")
+            d[7::14, 1] = float("nan")
+            o[3 * 256:4 * 256] = float("nan")
+    feats, lo, hi, nc = ik.pack_triangle_features(*tris)
+    boxes = torch.cat([lo.T, hi.T, torch.zeros((2, nc), device=device)])
+    return ik.pack_rays(o, d), feats, boxes.contiguous(), nc, tris[0].shape[0]
+
+
+@pytest.mark.parametrize("edge", INTERSECT_EDGES)
+def test_intersect_prefilter_edges_bitwise(cuda, edge):
+    from rtm_tpu_torch.ops.kernels import intersect_kernel as ik
+
+    rays, feats, boxes, nc, n_tris = _intersect_edge_case(edge, cuda)
+    before = ik.intersect_sweep.launches
+    t, i, passes = ik.intersect_sweep(rays, feats, boxes, nc,
+                                      return_passes=True, n_tris=n_tris)
+    assert ik.intersect_sweep.launches == before + 1
+    pt, pi, pp, passed = ik.intersect_sweep_plain(
+        rays, feats, boxes, nc, return_passes=True, with_passed=True)
+    torch.cuda.synchronize()
+    assert torch.equal(t, pt) and torch.equal(i, pi)
+    assert torch.equal(passes, pp)
+    assert int(passes.sum()) > 0 and bool((i >= 0).any())
+    if edge == "scene3":
+        assert nc == 1 and n_tris == 34
+    if edge == "full_clusters":
+        assert n_tris == nc * 128
+    if edge == "many_clusters":
+        assert nc > 512 and bool(passed[:, 512:].any())
+    if edge == "no_box":
+        assert int(passes[0::2].sum()) == 0
+        assert bool((t.view(-1, 256)[0::2] == ik.FLT_MAX).all())
+    if edge == "nan_rays":
+        assert int(passes[3]) == 0 and bool((i[3 * 256:4 * 256] == -1).all())
 
 
 def test_sweep_wrappers_reject_what_the_kernels_do_not_take(cuda):

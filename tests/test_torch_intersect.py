@@ -192,6 +192,52 @@ def test_intersect_plain_cull_is_tile_uniform():
     assert (i1 == i0).float().mean() >= AGREE_MIN and (i1 >= 0).any()
 
 
+def _edge_rays(n, seed):
+    """(N, 3) origins and directions: random ones, then NaN, zero, inf and
+    axis-aligned directions and NaN origins among them."""
+    rs = np.random.default_rng(seed)
+    o = rs.uniform(-3.0, 3.0, (n, 3)).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    axes = np.concatenate([np.eye(3), -np.eye(3)]).astype(np.float32)
+    d[0:6] = axes
+    d[6:12] = 0.0
+    d[12:18, 0] = np.nan
+    d[18:24] = np.nan
+    d[24:30, 1] = np.inf
+    o[30:36, 2] = np.nan
+    d[36:48] = axes[rs.integers(0, 6, 12)]
+    o[36:48, 0] = 0.0
+    return torch.from_numpy(o), torch.from_numpy(d)
+
+
+def test_padding_rows_never_pass_the_strict_gate():
+    """The intersect kernel sweeps only a cluster's real rows: exact, since
+    a padding row of pack_triangle_features has a zero normal, so det > eps
+    fails for every ray (det is 0 or NaN).  Held on the plain version: a
+    cluster of padding rows only gives no hit for any ray, and the sweep of
+    the real rows (n_tris) equals the sweep of all 128 rows."""
+    rs = np.random.default_rng(11)
+    a = rs.uniform(-2.0, 2.0, (34, 3)).astype(np.float32)
+    b = a + rs.normal(0, 0.8, (34, 3)).astype(np.float32)
+    c = a + rs.normal(0, 0.8, (34, 3)).astype(np.float32)
+    feats, lo, hi, nc = tik.pack_triangle_features(
+        *(torch.from_numpy(x) for x in (a, b, c)))
+    assert nc == 1 and not feats[:, 34:].any()
+    boxes = torch.cat([lo.T, hi.T, torch.zeros((2, nc))])
+    rays = tik.pack_rays(*_edge_rays(2048, 3))
+    pad_only = feats[:, 34:35].expand(-1, 128).contiguous()
+    t, i = tik.intersect_sweep_plain(rays, pad_only, boxes, 1, cull=False)
+    assert (t == tint.FLT_MAX).all() and (i == -1).all()
+    full = tik.intersect_sweep_plain(rays, feats, boxes, 1,
+                                     return_passes=True)
+    real = tik.intersect_sweep_plain(rays, feats, boxes, 1,
+                                     return_passes=True, n_tris=34)
+    assert (full[1] >= 0).any() and bool((full[1] < 34).all())
+    for x, y in zip(full, real):
+        assert torch.equal(x, y)
+
+
 def _cfgs(res, bounces, spp=1):
     kw = dict(width=res, height=res, max_bounces=bounces, max_frames=spp,
               draw_environment=True)

@@ -111,6 +111,52 @@ def test_progressive_renderer_steps_equal_render_progressive(
     assert r.frame_index == 0 and not r.accum.any()
 
 
+# rtm_tpu's accumulate_step renders through its default backend, "xla"
+XLA_STEPS = (3, 16, 16, 4, 3)       # scene, width, height, bounces, frames
+
+
+def test_accumulate_step_xla_matches_rtm_tpu_default_path(image_compare):
+    """The port's accumulate_step(backend="xla") against rtm_tpu's
+    accumulate_step (its default path), frame by frame: the accumulated
+    display image of frames 1-3 within images_close."""
+    from rtm_tpu.runtime.renderer import accumulate_step as j_step
+    from rtm_tpu_torch.runtime.renderer import accumulate_step
+
+    sid, w, h, bounces, frames = XLA_STEPS
+    jcfg, tcfg = _cfgs(w, h, bounces)
+    js, jcam = jax_scene(sid), rtm_tpu.Camera().spec(w, h)
+    st, tcam = _port_scene(sid), rtm_tpu_torch.Camera().spec(w, h)
+    jacc = jnp.zeros((h, w, 3), jnp.float32)
+    tacc = torch.zeros((h, w, 3))
+    for fi in range(1, frames + 1):
+        jacc, want = j_step(js, jcam, jacc, fi, jcfg)
+        tacc, got = accumulate_step(st, tcam, tacc, fi, tcfg, backend="xla")
+        assert got.shape == (h, w, 3) and torch.isfinite(got).all()
+        assert float(got.mean()) > 0.0
+        image_compare(got.numpy(), np.asarray(want))
+
+
+def test_progressive_renderer_takes_a_backend():
+    """ProgressiveRenderer(backend="xla").step() is accumulate_step(
+    backend="xla") frame by frame."""
+    from rtm_tpu_torch.runtime.renderer import accumulate_step
+
+    sid, w, h, bounces, frames = XLA_STEPS
+    _, tcfg = _cfgs(w, h, bounces)
+    tcfg = tcfg.replace(accumulate=True)
+    r = rtm_tpu_torch.ProgressiveRenderer(_port_scene(sid), cfg=tcfg,
+                                          backend="xla")
+    assert r.backend == "xla"
+    acc = torch.zeros((h, w, 3))
+    tcam = rtm_tpu_torch.Camera().spec(w, h)
+    for fi in range(1, frames + 1):
+        got = r.step()
+        acc, want = accumulate_step(r.scene, tcam, acc, fi, tcfg,
+                                    backend="xla")
+        assert torch.equal(got, want)
+    assert rtm_tpu_torch.ProgressiveRenderer(r.scene).backend == "auto"
+
+
 def test_entry_points_need_the_card_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     host = rtm_tpu_torch.load_scene(5)

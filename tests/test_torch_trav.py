@@ -230,3 +230,68 @@ def test_carried_scene_renders_like_port_build(scenes):
                                         backend="trav")
     assert torch.isfinite(got).all() and float(got.mean()) > 0.0
     assert torch.equal(got, want)
+
+
+# The trav kernel's warp-cooperative leaf test (csrc/trav_trace.cu
+# drain_leaf) as a plain model, held against the serial strict loop that
+# defines the leaf test (rows in order, strict <: rtm_tpu's kernel and the
+# plain version), over the outcome of each row's test: `ok` the min-chain
+# gate, `t` the quotient.  Bitwise: the same t bits (so -0.0 against 0.0
+# counts) and the same winning row.
+NO_ROW = 0x7FFFFFFF
+
+
+def _serial_leaf(t, ok, best):
+    """Rows in order, a row replaces the best only when strictly below."""
+    win = -1
+    for k in range(len(t)):
+        if ok[k] and t[k] < best:
+            best, win = t[k], k
+    return best, win
+
+
+def _warp_leaf(t, ok, best):
+    """Lane j keeps its first strict minimum below the owner's best over
+    rows j, j + 32, ...; the xor butterfly keeps the least t, the lower row
+    on equal t; the owner takes it only when strictly below its best."""
+    tl, kl = [best] * 32, [NO_ROW] * 32
+    for j in range(32):
+        for k in range(j, len(t), 32):
+            if ok[k] and t[k] < tl[j]:
+                tl[j], kl[j] = t[k], k
+    for m in (16, 8, 4, 2, 1):
+        nt, nk = list(tl), list(kl)
+        for j in range(32):
+            t2, k2 = tl[j ^ m], kl[j ^ m]
+            if t2 < tl[j] or (t2 == tl[j] and k2 < kl[j]):
+                nt[j], nk[j] = t2, k2
+        tl, kl = nt, nk
+    assert len({(float(x).hex(), k) for x, k in zip(tl, kl)}) == 1
+    return (tl[0], kl[0]) if tl[0] < best else (best, -1)
+
+
+def _leaf_rows(kind, cnt, rng):
+    """(t, ok) of one leaf's rows: uniform t, t from a few values (ties,
+    signed zeros, the sphere's t), or with inf, NaN and huge t."""
+    f32 = np.float32
+    if kind == "random":
+        t = rng.uniform(0.0, 10.0, cnt).astype(f32)
+    elif kind == "ties":
+        t = rng.choice(np.array([0.0, -0.0, 0.5, 1.0, 2.0], f32), cnt)
+    else:
+        t = rng.choice(np.array([np.inf, np.nan, 1e30, 3.0e38, 0.25, 1.0],
+                                f32), cnt)
+    return t, rng.random(cnt) < 0.7
+
+
+@pytest.mark.parametrize("cnt", [1, 31, 32, 33, 100, 256])
+@pytest.mark.parametrize("kind", ["random", "ties", "inf_nan"])
+def test_warp_leaf_reduction_equals_serial_loop(kind, cnt):
+    rng = np.random.default_rng(cnt * 7 + len(kind))
+    for _ in range(40):
+        t, ok = _leaf_rows(kind, cnt, rng)
+        for best in np.array([1e30, 1.0, 0.0, -0.0], np.float32):
+            sb, sw = _serial_leaf(t, ok, best)
+            wb, ww = _warp_leaf(t, ok, best)
+            assert sw == ww
+            assert np.float32(sb).tobytes() == np.float32(wb).tobytes()
