@@ -37,7 +37,11 @@ Phases (each prints lines starting with its tag, and its seconds):
   [profile] torch.profiler over 4 main-path frames: device busy time and
             idle share per frame, device launches, the costliest kernels
             and the PyTorch ops that launched them
-  [wide]    dragon_grid at <= 2047 triangles, 512x512, 8 bounces, 8 frames
+  [wide]    dragon_grid at <= 2047 triangles, 512x512, 8 bounces, 8 frames;
+            [main] and [wide] print the mxu kernel's time, its bound (the
+            largest of the bytes, the tensor-core product and the FP32
+            selection and shading terms, from the plain version's alive
+            masks and chunk passes) and its dynamic shared memory
   [plain]   the mxu plain version's time for one 512x512 frame of scene 3
   [trav]    dragon_grid(56), 512x512, 8 bounces: 2 warm-up + 16 timed
             frames of render_progressive with backend="auto" (resolves to
@@ -132,9 +136,16 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# FP32 operations of one ray-triangle pair test: four 10-term rows
-# (9 multiplies + 9 adds each, csrc/mxu_trace.cu row_dot) and det's 2 adds
-PAIR_OPS = 4 * 18 + 2
+BF16_TC_FLOP_PER_S = 989e12
+# one ray-triangle pair of the mxu kernel: on the tensor cores, the
+# non-zero products of the table's 16-bit rows (A_hi + A_lo) with the ray's
+# three bf16 parts (hi + md + lo) but A_lo . lo, 2 flop each: an edge row
+# s1..s3 holds features 0-5 (d, o x d: 6 x 5 products), the tdet row
+# features 6-8 (o: 3 x 5) and the constant 1, whose md and lo are 0 (2);
+# in FP32 the selection: det's 2 adds, the 3-min chain, the sign test and
+# the running min
+PAIR_MMA_FLOP = 2 * (3 * 6 * 5 + 3 * 5 + 2)
+PAIR_SELECT_OPS = 2 + 3 + 1 + 1
 # FP32 operations of one trav node visit (slab test: 6 subtractions, 6
 # multiplies, 10 min/max, 3 compares) and one triangle test (edge cross
 # product 9, det 6, tdet 5, second cross product 9, u 5, v 6, w 2, the
@@ -244,30 +255,61 @@ class Smoke:
         print(f"[{tag}] phase_s={time.perf_counter() - t0:.2f}", flush=True)
 
 
-def mxu_bound(scene, cfg, hitrec, n: int):
-    """(bound_ms, bound_by) of one timed mxu_trace call (no hitrec output):
-    each input read once and each output written once at the HBM rate,
-    against the pair tests this run's rays needed at the FP32 rate.  A ray
-    is live at bounce 0 and at bounce b while it hit something at bounce
-    b-1 (hitrec != 0, from an untimed call on the same inputs); every live
-    ray-bounce is tested against every triangle (the chunk cull can only
-    lower this)."""
-    from rtm_tpu_torch.ops.kernels.mxu_kernel import side_tables
+def mxu_bound(scene, cfg, n: int):
+    """(bound_ms, bound_by, term) of one timed mxu_trace call (no hitrec
+    output) on Camera().spec's rays at frame index 1: the largest of each
+    input read once and each output written once at the HBM rate, the
+    pair products at the bf16 tensor-core rate, and the pair selections,
+    sphere tests and shading at the FP32 rate.  A pair is an (alive
+    ray-bounce, real triangle of a chunk the ray's BLOCK-slot block
+    passed); the alive masks and passes are the plain version's MxuStats
+    on the same inputs.  Dead rays feed no output the path reads."""
+    import torch
+    from rtm_tpu_torch import Camera
+    from rtm_tpu_torch.ops.kernels.megakernel import _pack_camera
+    from rtm_tpu_torch.ops.kernels.mxu_kernel import (BLOCK, CHUNK,
+                                                      mxu_trace_plain,
+                                                      side_tables)
 
-    ma = scene.mxu_arrays
-    fb = cfg.max_frames * cfg.max_bounces
+    ma, mm = scene.mxu_arrays, scene.mxu_meta
+    tabs = side_tables(scene)
+    camf = _pack_camera(Camera().spec(cfg.width, cfg.height), scene.device)
+    stats = mxu_trace_plain(scene, tabs, camf, 1, 0, n, cfg,
+                            with_stats=True)[4]
     in_bytes = 64 * 4 + sum(t.numel() * t.element_size() for t in (
-        ma.pair32, ma.attr, ma.info, ma.cbox, *side_tables(scene))
-        if t is not None)
-    out_rows = 3 + 8 * cfg.max_frames + (8 * fb if scene.any_textured else 0)
-    out_bytes = out_rows * n * 4
-    hr = hitrec.view(cfg.max_frames, cfg.max_bounces, n)
-    live = cfg.max_frames * n + int((hr[:, :-1] != 0).sum())
-    ops = live * scene.mxu_meta.n_tris * PAIR_OPS
-    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+        ma.pair, ma.attr, ma.info, ma.cbox, *tabs) if t is not None)
+    out_rows = 3 + 8 * cfg.max_frames + (
+        8 * cfg.max_frames * cfg.max_bounces if scene.any_textured else 0)
+    t_bytes = (in_bytes + out_rows * n * 4) / HBM_BYTES_PER_S * 1e3
+    fb, blocks, nc = stats.passed.shape
+    alive = torch.nn.functional.pad(stats.alive.double(),
+                                    (0, blocks * BLOCK - n))
+    alive_block = alive.view(fb, blocks, BLOCK).sum(dim=2)   # (FB, blocks)
+    real = (mm.n_tris - CHUNK * torch.arange(nc, device=alive.device)
+            ).clamp(0, CHUNK).double()
+    pairs = float((alive_block * (stats.passed.double() @ real)).sum())
+    live = float(alive.sum())
+    s_pad = tabs.sph.shape[1] if scene.num_spheres else 0
+    t_mma = pairs * PAIR_MMA_FLOP / BF16_TC_FLOP_PER_S * 1e3
+    t_fp32 = (pairs * PAIR_SELECT_OPS + live * (s_pad * SPHERE_OPS
+                                                + SHADE_OPS)) \
+        / FP32_OPS_PER_S * 1e3
+    terms = {"bytes": t_bytes, "tensor-core product": t_mma,
+             "fp32 selection and shading": t_fp32}
+    term = max(terms, key=terms.get)
+    return terms[term], ("bytes" if term == "bytes" else "operations"), \
+        f"{term}; pairs={pairs:.0f} live_ray_bounces={live:.0f} " + \
+        " ".join(f"{k.split()[0]}_ms={v:.5f}" for k, v in terms.items())
+
+
+def mxu_smem_bytes(scene) -> int:
+    """The mxu kernel's dynamic shared memory per block on this scene, as
+    its launch sets it (csrc/mxu_trace.cu mxu_trace_smem_bytes)."""
+    from rtm_tpu_torch.ops.kernels.build import load_kernel_library
+
+    mm = scene.mxu_meta
+    return int(load_kernel_library("mxu_trace").mxu_trace_smem_bytes(
+        mm.n_tris, mm.nc))
 
 
 def trav_bound(scene, cfg, stats, n: int):
@@ -579,7 +621,7 @@ def drive(sm: Smoke, tag: str, scene, build_s: float, frames_warm: int,
 def kernel_and_postpass_ms(scene, cfg, reps: int):
     """Device time of one mxu_trace launch (side tables built once, so the
     launches queue back to back) and of one post-pass at the main path's
-    shape, plus the launch's hitrec for the bound."""
+    shape."""
     from rtm_tpu_torch import Camera
     from rtm_tpu_torch.ops.kernels.megakernel import (_pack_camera,
                                                       mega_postpass)
@@ -589,11 +631,10 @@ def kernel_and_postpass_ms(scene, cfg, reps: int):
     camf = _pack_camera(Camera().spec(cfg.width, cfg.height), scene.device)
     tabs = side_tables(scene)
     k_ms = cuda_ms(lambda: mxu_trace(scene, tabs, camf, 1, 0, n, cfg), reps)
-    color, miss, rec, hitrec = mxu_trace(scene, tabs, camf, 1, 0, n, cfg,
-                                         return_hitrec=True)
+    color, miss, rec, _ = mxu_trace(scene, tabs, camf, 1, 0, n, cfg)
     p_ms = cuda_ms(lambda: mega_postpass(color.T, miss, rec, scene, cfg, n),
                    reps)
-    return k_ms, p_ms, hitrec
+    return k_ms, p_ms
 
 
 def phase_profile(scene, cfg, frames: int, frame_ms: float,
@@ -1586,11 +1627,12 @@ def main() -> int:
         scene, build_s = build_scene(load_scene(3))
         cfg, img, frame_ms, launches = drive(sm, "main", scene, build_s,
                                              2, 32)
-        k_ms, p_ms, hitrec = kernel_and_postpass_ms(scene, cfg, 20)
+        k_ms, p_ms = kernel_and_postpass_ms(scene, cfg, 20)
         n = cfg.width * cfg.height
-        bound_ms, bound_by = mxu_bound(scene, cfg, hitrec, n)
+        bound_ms, bound_by, term = mxu_bound(scene, cfg, n)
         print(f"[main] kernel_ms={k_ms:.4f} postpass_ms={p_ms:.4f} "
-              f"bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
+              f"bound_ms={bound_ms:.5f} ({bound_by}: {term}) "
+              f"dynamic_smem_bytes={mxu_smem_bytes(scene)}", flush=True)
         out_png = build.BUILD_DIR / "chip_smoke_scene3.png"
         out_png.parent.mkdir(parents=True, exist_ok=True)
         save_png(out_png, img.cpu().numpy()[::-1])
@@ -1602,10 +1644,11 @@ def main() -> int:
     with sm.phase("wide"):
         wide, wbuild_s = build_scene(dragon_grid(grid_k))
         wcfg, _, wide_ms, _ = drive(sm, "wide", wide, wbuild_s, 0, 8)
-        wk_ms, wp_ms, whr = kernel_and_postpass_ms(wide, wcfg, 5)
-        wb_ms, wb_by = mxu_bound(wide, wcfg, whr, n)
+        wk_ms, wp_ms = kernel_and_postpass_ms(wide, wcfg, 5)
+        wb_ms, wb_by, wterm = mxu_bound(wide, wcfg, n)
         print(f"[wide] kernel_ms={wk_ms:.4f} postpass_ms={wp_ms:.4f} "
-              f"bound_ms={wb_ms:.5f} ({wb_by})", flush=True)
+              f"bound_ms={wb_ms:.5f} ({wb_by}: {wterm}) "
+              f"dynamic_smem_bytes={mxu_smem_bytes(wide)}", flush=True)
         del wide
 
     with sm.phase("plain"):

@@ -16,13 +16,15 @@ tests s1, s2, s3 (their sum is det = -d.n, the backface gate) and
 tdet = (o - a).n.  A pair passes when all four are >= 0 and is ordered by
 tt = min(tdet / max(det, DET_EPS), 1e28).
 
-Two implementations of one contract (`mxu_trace`):
-  * the CUDA kernel (csrc/mxu_trace.cu), one thread per ray, FP32 dot
-    products against the `pair32` rows;
+Two implementations of one contract (`mxu_trace`), both over the TPU
+kernel's bf16 K-stack table (`pair` rows [A_hi | A_hi | A_lo]):
+  * the CUDA kernel (csrc/mxu_trace.cu), one thread per ray, the pair
+    products on the tensor cores (mma.sync, bf16 in, f32 accumulate): the
+    rows' 16 bits (A_hi + A_lo) against the ray's f32 features split into
+    three bf16 parts, the f32 product of the table's values;
   * the plain version `mxu_trace_plain`, vectorised over rays, which keeps
-    the TPU kernel's bf16x3 K-stacked matmul (`pair` rows against
-    [B_hi; B_lo; B_hi]) so that on the CPU it tracks rtm_tpu as closely as
-    summation order allows.
+    the TPU kernel's bf16x3 product (`pair` against [b_hi; b_lo; b_hi]) so
+    that on the CPU it tracks rtm_tpu as closely as summation order allows.
 The wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches the kernel or raises.
 
@@ -52,15 +54,17 @@ from .build import check_arg, load_kernel_library, ptr
 from .megakernel import (SEED_STRIDE, _pack_camera, mega_postpass,
                          slot_to_xy, slots_to_image, use_block8)
 from .trav_kernel import SideTables, build_side_tables, check_side_tables
-from .vreg_common import (BIG, NO_TEX, PathState, _cross, camera_frame,
-                          jittered_ray, miss_rows, shade_tail,
+from .vreg_common import (BIG, NO_TEX, PathState, _cross, _safe_inv_dirs,
+                          camera_frame, jittered_ray, miss_rows, shade_tail,
                           sphere_nearest_smem)
 
 K = 16                       # ray feature depth: [d, oxd, o, 1] pad 10->16
 KS = 3 * K                   # bf16x3 stacked contraction depth
 Q = 4                        # pair rows per triangle: s1, s2, s3, tdet
-ROW_W = Q * 10               # pair32 floats per triangle
 CHUNK = 128                  # triangles per cull chunk
+BLOCK = 256                  # the kernel's slots per thread block: its cull
+                             # granule (csrc/mxu_trace.cu BLOCK; _library
+                             # checks the two agree)
 MAX_TRIS = 2047              # 11-bit index pack in the t mantissa
 IDX_MASK = 0x7FF
 
@@ -83,7 +87,6 @@ class MxuArrays:
     (material/texture/sphere side tables are rebuilt per dispatch)."""
 
     pair: torch.Tensor     # (NC, Q*128, KS) bf16 K-stacked [A_hi|A_hi|A_lo]
-    pair32: torch.Tensor   # (NC*128, ROW_W) f32 rows hi+lo, [q*10 + k]
     attr: torch.Tensor     # (NC*128, A_ROWS) f32 n, a.n, shading normal
     info: torch.Tensor     # (NC*128,) i32 mat | texslot<<8 | scene row<<16
     cbox: torch.Tensor     # (NC, 8) f32 chunk bbox lo3 hi3
@@ -120,15 +123,6 @@ def _morton3(vals: np.ndarray) -> np.ndarray:
 
     return (spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1))
             | (spread(q[:, 2]) << np.uint64(2)))
-
-
-def _pair32_from_pair(pair: torch.Tensor) -> torch.Tensor:
-    """(NC, Q*128, KS) bf16 K-stack -> (NC*128, ROW_W) f32 rows hi + lo:
-    the value the bf16x3 product multiplies, one row per triangle."""
-    nc = pair.shape[0]
-    rows = pair[..., 0:10].float() + pair[..., 2 * K:2 * K + 10].float()
-    return (rows.reshape(nc, Q, CHUNK, 10).permute(0, 2, 1, 3)
-            .reshape(nc * CHUNK, ROW_W).contiguous())
 
 
 def build_mxu_tables(tri_wa, tri_wb, tri_wc, tri_normal, tri_mat,
@@ -214,8 +208,7 @@ def build_mxu_tables(tri_wa, tri_wb, tri_wc, tri_normal, tri_mat,
         info = np.full((CHUNK,), NO_TEX << 8, np.int32)
         cbox = np.zeros((1, 8), np.float32)
 
-    arrays = MxuArrays(pair=pair, pair32=_pair32_from_pair(pair),
-                       attr=torch.from_numpy(attr),
+    arrays = MxuArrays(pair=pair, attr=torch.from_numpy(attr),
                        info=torch.from_numpy(info),
                        cbox=torch.from_numpy(cbox))
     return MxuTables(arrays, MxuMeta(t, nc, supported,
@@ -234,8 +227,8 @@ def mxu_arrays_from_tpu(pair, attr, info, cbox) -> MxuArrays:
     attr = np.asarray(attr, np.float32)
     attr_t = t(attr[:, :, 0, :].reshape(attr.shape[0], -1).T, np.float32)
     info_t = t(np.asarray(info)[:, 0, :].reshape(-1), np.int32)
-    return MxuArrays(pair=pair_t, pair32=_pair32_from_pair(pair_t),
-                     attr=attr_t, info=info_t, cbox=t(cbox, np.float32))
+    return MxuArrays(pair=pair_t, attr=attr_t, info=info_t,
+                     cbox=t(cbox, np.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -246,10 +239,9 @@ def side_tables(scene) -> SideTables:
     return build_side_tables(scene, scene.mxu_meta.textured_rows)
 
 
-def _nearest_tri_plain(ma: MxuArrays, n_tris: int, ox, oy, oz, dx, dy, dz):
-    """All-pairs test through the bf16x3 K-stacked product, every chunk (the
-    kernel's chunk cull is conservative, so skipping it changes nothing
-    but time): returns (got, win) with win the Morton table row."""
+def ray_features(ox, oy, oz, dx, dy, dz):
+    """The ray side of the pair test: f = [d, o x d, o, 1, 0...] (K, N)
+    split into b_hi = bf16(f) and b_lo = bf16(f - b_hi)."""
     mx, my, mz = _cross(ox, oy, oz, dx, dy, dz)
     one = torch.ones_like(ox)
     zero = torch.zeros_like(ox)
@@ -257,6 +249,21 @@ def _nearest_tri_plain(ma: MxuArrays, n_tris: int, ox, oy, oz, dx, dy, dz):
                       + [zero] * (K - 10))                 # (K, N)
     b_hi = b32.to(torch.bfloat16)
     b_lo = (b32 - b_hi.float()).to(torch.bfloat16)
+    return b_hi, b_lo
+
+
+def pack_t(tt, idx):
+    """The ordering key: tt's bits with the table index in the low 11."""
+    return ((tt.view(torch.int32) & ~IDX_MASK) | idx).view(torch.float32)
+
+
+def nearest_packed_plain(ma: MxuArrays, ox, oy, oz, dx, dy, dz):
+    """All-pairs test through the bf16x3 K-stacked product, every chunk:
+    the least packed key per ray, BIG where no pair passes.  (The kernel
+    skips a chunk that no live ray of its block enters; that changes a key
+    only for a ray lying in a triangle's plane, whose "hit" at t = 0 the
+    retest rejects.)"""
+    b_hi, b_lo = ray_features(ox, oy, oz, dx, dy, dz)
     rm = torch.cat([b_hi, b_lo, b_hi]).float()            # (KS, N)
     rowi = torch.arange(CHUNK, dtype=torch.int32, device=ox.device)[:, None]
     best = torch.full_like(ox, BIG)
@@ -266,21 +273,56 @@ def _nearest_tri_plain(ma: MxuArrays, n_tris: int, ox, oy, oz, dx, dy, dz):
         det = s1 + s2 + s3
         m = torch.minimum(torch.minimum(s1, s2), torch.minimum(s3, td))
         tt = torch.clamp(td / torch.clamp(det, min=DET_EPS), max=1e28)
-        packed = ((tt.view(torch.int32) & ~IDX_MASK) | (rowi + c * CHUNK)
-                  ).view(torch.float32)
-        packed = torch.where(m >= 0.0, packed, BIG)
+        packed = torch.where(m >= 0.0, pack_t(tt, rowi + c * CHUNK), BIG)
         best = torch.minimum(best, packed.amin(dim=0))
+    return best
+
+
+def _nearest_tri_plain(ma: MxuArrays, n_tris: int, ox, oy, oz, dx, dy, dz):
+    """(got, win) of the all-pairs test, win the Morton table row."""
+    best = nearest_packed_plain(ma, ox, oy, oz, dx, dy, dz)
     got = best < 1e29
     win = best.view(torch.int32) & IDX_MASK
     return got, torch.clamp(win, 0, max(n_tris - 1, 0)).long()
 
 
+class MxuStats(NamedTuple):
+    """Per-(frame, bounce) work of an mxu dispatch, row fb = (frame - 1) *
+    bounces + b: the slots alive at the bounce's start, and per BLOCK-slot
+    thread block of the kernel the chunks its cull passed (some alive ray
+    of the block enters the chunk's box)."""
+
+    alive: torch.Tensor    # (FB, N) bool
+    passed: torch.Tensor   # (FB, ceil(N / BLOCK), NC) bool
+
+
+def chunk_passes(ma: MxuArrays, alive, ox, oy, oz, dx, dy, dz):
+    """The kernel's block-uniform chunk cull: (ceil(N / BLOCK), NC) bool,
+    the slab test of csrc/mxu_trace.cu (fminf / fmaxf ignore NaN, as
+    torch.fmin / torch.fmax do) of each alive ray against each chunk box,
+    OR-ed over each block's slots."""
+    inv = _safe_inv_dirs(dx, dy, dz)
+    tn = tf = None
+    for a, o in enumerate((ox, oy, oz)):
+        t1 = (ma.cbox[None, :, a] - o[:, None]) * inv[a][:, None]  # (N, NC)
+        t2 = (ma.cbox[None, :, a + 3] - o[:, None]) * inv[a][:, None]
+        lo, hi = torch.fmin(t1, t2), torch.fmax(t1, t2)
+        tn = lo if tn is None else torch.fmax(tn, lo)
+        tf = hi if tf is None else torch.fmin(tf, hi)
+    hit = alive[:, None] & (tf >= 0.0) & (tn <= tf)
+    n = hit.shape[0]
+    blocks = -(-n // BLOCK)
+    hit = torch.nn.functional.pad(hit, (0, 0, 0, blocks * BLOCK - n))
+    return hit.view(blocks, BLOCK, -1).any(dim=1)
+
+
 def mxu_trace_plain(scene, tables: SideTables, camf, frame_index: int,
                     pixel_offset: int, n_rays: int, cfg: RenderConfig,
-                    return_hitrec: bool = False):
+                    return_hitrec: bool = False, with_stats: bool = False):
     """Plain PyTorch version of the kernel: the same outputs from the same
     inputs, vectorised over rays with Python loops over frames, bounces and
-    chunks.  Runs on any device."""
+    chunks.  Runs on any device.  with_stats appends an MxuStats (the
+    kernel's work on these rays, for its bound) to the returned tuple."""
     dev = camf.device
     w, h = cfg.width, cfg.height
     frames, bounces = cfg.max_frames, cfg.max_bounces
@@ -307,6 +349,7 @@ def mxu_trace_plain(scene, tables: SideTables, camf, frame_index: int,
                           device=dev) if return_hitrec else None)
     zero = torch.zeros(n, **f32)
     col = [zero] * 3
+    st_alive, st_passed = [], []
 
     for frame in range(1, frames + 1):
         seed = (lin_u + frame * frame_index * SEED_STRIDE) & U32_MASK
@@ -326,6 +369,10 @@ def mxu_trace_plain(scene, tables: SideTables, camf, frame_index: int,
                 t_sph = torch.full((n,), BIG, **f32)
                 s_idx = torch.zeros(n, dtype=torch.int32, device=dev)
 
+            if with_stats:
+                st_alive.append(s.alive)
+                st_passed.append(chunk_passes(ma, s.alive, ox, oy, oz,
+                                              dx, dy, dz))
             w_sn = None
             if have_tris:
                 got, win = _nearest_tri_plain(ma, mm.n_tris, ox, oy, oz,
@@ -368,7 +415,10 @@ def mxu_trace_plain(scene, tables: SideTables, camf, frame_index: int,
         col = s.col
         miss[(frame - 1) * 8:frame * 8] = miss_rows(s)
 
-    return torch.stack(col), miss, rec, hitrec
+    out = (torch.stack(col), miss, rec, hitrec)
+    if with_stats:
+        out += (MxuStats(torch.stack(st_alive), torch.stack(st_passed)),)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -377,10 +427,47 @@ def mxu_trace_plain(scene, tables: SideTables, camf, frame_index: int,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, ctypes.c_uint32, _I, _I, _I, _I, _I, _I,   # camf .. bounces
-             _P, _P, _P, _P, _I, _I,                          # geometry
-             _P, _P, _P, _I, _I,                              # side tables
-             _P, _P, _P, _P, _P]                              # outs, stream
+_GEOMETRY = [_P, _P, _P, _P, _I, _I]                         # pair .. nc
+_ARGTYPES = ([_P, ctypes.c_uint32, _I, _I, _I, _I, _I, _I]   # camf .. bounces
+             + _GEOMETRY
+             + [_P, _P, _P, _I, _I]                           # side tables
+             + [_P, _P, _P, _P, _P])                          # outs, stream
+_NEAREST_ARGTYPES = [_P, _P, _I] + _GEOMETRY + [_P, _P]
+
+
+def _geometry_args(scene, dev):
+    """The checked geometry tables as the C interface takes them."""
+    ma, mm = scene.mxu_arrays, scene.mxu_meta
+    nc = mm.nc
+    chk = lambda *a: check_arg("mxu_trace", *a)  # noqa: E731
+    chk("pair", ma.pair, torch.bfloat16, (nc, Q * CHUNK, KS), dev)
+    chk("attr", ma.attr, torch.float32, (nc * CHUNK, A_ROWS), dev)
+    chk("info", ma.info, torch.int32, (nc * CHUNK,), dev)
+    chk("cbox", ma.cbox, torch.float32, (nc, 8), dev)
+    if ma.pair.data_ptr() % 16:
+        raise ValueError("mxu_trace: pair must be 16-byte aligned "
+                         "(the kernel stages it with 16-byte copies)")
+    return [ma.pair.data_ptr(), ma.attr.data_ptr(), ma.info.data_ptr(),
+            ma.cbox.data_ptr(), mm.n_tris, nc]
+
+
+def _library():
+    """csrc/mxu_trace.cu's library, whose cull granule must be BLOCK (the
+    plain version's `chunk_passes` mirrors it)."""
+    lib = load_kernel_library("mxu_trace")
+    block = lib.mxu_trace_block()
+    if block != BLOCK:
+        raise RuntimeError(f"mxu_trace: the kernel culls blocks of {block} "
+                           f"slots, mxu_kernel.BLOCK is {BLOCK}")
+    return lib
+
+
+def _check_scene(name, scene, dev):
+    mm = scene.mxu_meta
+    if mm is None or not mm.supported:
+        raise ValueError(f"{name}: scene exceeds the mxu table limits")
+    if scene.device != dev:
+        raise ValueError(f"{name}: inputs on {dev}, scene on {scene.device}")
 
 
 def mxu_trace(scene, tables: SideTables, camf, frame_index: int,
@@ -392,13 +479,8 @@ def mxu_trace(scene, tables: SideTables, camf, frame_index: int,
     CPU tensors go to `mxu_trace_plain`; CUDA tensors launch the kernel
     of csrc/mxu_trace.cu (built at first use) and raise on any launch
     error.  `mxu_trace.launches` counts the kernel launches."""
-    mm = scene.mxu_meta
-    if mm is None or not mm.supported:
-        raise ValueError("mxu_trace: scene exceeds the mxu table limits")
     dev = camf.device
-    if scene.device != dev:
-        raise ValueError(f"mxu_trace: camera row on {dev}, scene on "
-                         f"{scene.device}")
+    _check_scene("mxu_trace", scene, dev)
     if dev.type == "cpu":
         return mxu_trace_plain(scene, tables, camf, frame_index,
                                pixel_offset, n_rays, cfg, return_hitrec)
@@ -408,14 +490,8 @@ def mxu_trace(scene, tables: SideTables, camf, frame_index: int,
     if n <= 0 or pixel_offset < 0:
         raise ValueError("mxu_trace: need n_rays > 0 and pixel_offset >= 0")
     frames, bounces = cfg.max_frames, cfg.max_bounces
-    ma = scene.mxu_arrays
-    nc = mm.nc
-    chk = lambda *a: check_arg("mxu_trace", *a)  # noqa: E731
-    chk("camf", camf, torch.float32, (64,), dev)
-    chk("pair32", ma.pair32, torch.float32, (nc * CHUNK, ROW_W), dev)
-    chk("attr", ma.attr, torch.float32, (nc * CHUNK, A_ROWS), dev)
-    chk("info", ma.info, torch.int32, (nc * CHUNK,), dev)
-    chk("cbox", ma.cbox, torch.float32, (nc, 8), dev)
+    check_arg("mxu_trace", "camf", camf, torch.float32, (64,), dev)
+    geometry = _geometry_args(scene, dev)
     mat, tex, sph = check_side_tables("mxu_trace", scene, tables, dev)
 
     f32 = dict(dtype=torch.float32, device=dev)
@@ -426,19 +502,17 @@ def mxu_trace(scene, tables: SideTables, camf, frame_index: int,
     hitrec = (torch.empty((frames * bounces, n), dtype=torch.int32,
                           device=dev) if return_hitrec else None)
 
-    lib = load_kernel_library("mxu_trace")
-    fn = lib.mxu_trace_launch
+    fn = _library().mxu_trace_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(camf.data_ptr(), int(frame_index) & U32_MASK,
                  int(pixel_offset), n, cfg.width, cfg.height, frames,
-                 bounces, ma.pair32.data_ptr(), ma.attr.data_ptr(),
-                 ma.info.data_ptr(), ma.cbox.data_ptr(), mm.n_tris, nc,
-                 mat.data_ptr(), ptr(tex), sph.data_ptr(), sph.shape[1],
-                 scene.num_spheres, color.data_ptr(), miss.data_ptr(),
-                 ptr(rec), ptr(hitrec), stream)
+                 bounces, *geometry, mat.data_ptr(), ptr(tex),
+                 sph.data_ptr(), sph.shape[1], scene.num_spheres,
+                 color.data_ptr(), miss.data_ptr(), ptr(rec), ptr(hitrec),
+                 stream)
     if err != 0:
         raise RuntimeError(f"mxu_trace: kernel launch failed with CUDA "
                            f"error {err}")
@@ -447,6 +521,44 @@ def mxu_trace(scene, tables: SideTables, camf, frame_index: int,
 
 
 mxu_trace.launches = 0
+
+
+def mxu_nearest(scene, rays, alive):
+    """The kernel's pair pass alone, on given rays: `rays` (6, N) f32
+    (o, d), `alive` (N,) bool; returns the least packed key per ray
+    (`nearest_packed_plain`'s value; BIG for a dead ray or no pair).
+
+    CPU tensors go to `nearest_packed_plain`; CUDA tensors launch csrc/mxu_trace.cu's pair-pass kernel (the device
+    code `mxu_trace` runs: chunk cull, staging, tensor-core products,
+    test, packing and reductions, over blocks of BLOCK rays).  For tests
+    and measurement; `mxu_nearest.launches` counts its launches."""
+    dev = rays.device
+    _check_scene("mxu_nearest", scene, dev)
+    if dev.type == "cpu":
+        return torch.where(alive, nearest_packed_plain(scene.mxu_arrays,
+                                                       *rays), BIG)
+    if dev.type != "cuda":
+        raise ValueError(f"mxu_nearest: unsupported device {dev}")
+    n = rays.shape[-1]
+    check_arg("mxu_nearest", "rays", rays, torch.float32, (6, n), dev)
+    check_arg("mxu_nearest", "alive", alive, torch.bool, (n,), dev)
+    geometry = _geometry_args(scene, dev)
+    best = torch.empty(n, dtype=torch.float32, device=dev)
+    fn = _library().mxu_nearest_launch
+    fn.argtypes = _NEAREST_ARGTYPES
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(rays.data_ptr(), alive.data_ptr(), n, *geometry,
+                 best.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"mxu_nearest: kernel launch failed with CUDA "
+                           f"error {err}")
+    mxu_nearest.launches += 1
+    return best
+
+
+mxu_nearest.launches = 0
 
 
 # ---------------------------------------------------------------------------

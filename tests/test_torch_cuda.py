@@ -6,17 +6,19 @@ on a machine that has PyTorch with CUDA and nothing of JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance: the kernel's pair test is per-thread FP32 against the f32 rows
-(hi + lo), the plain version's the bf16x3 product that drops lo x lo, so a
-ray through an edge two triangles share may pick the other one: hitrec
-must agree on >= 99.9% of records.  Scene 3's walls are such pairs, and
-the share of rays near their edges falls as the resolution grows, so
-scene 3 runs at 64x64, the size chip_smoke.py holds to the same bound
-(0.9985 of records agreed at 32x32 on an H100).  On the lanes whose
-records all agree, both sides round op by op alike (the kernels are built
-with --fmad=false), so color / miss / rec agree to 1e-3 absolute (the
-transcendentals are the only operations that may differ in the last
-place).
+Tolerance: the mxu kernel's pair test takes the table's 16-bit rows
+against the ray's f32 features on the tensor cores, the plain version the
+TPU kernel's coarser bf16x3 product, so a ray through an edge two triangles
+share may pick the other one: hitrec must agree on >= 99.9% of records.
+Scene 3's walls are such pairs, and the share of rays near their edges
+falls as the resolution grows, so scene 3 runs at 64x64, the size
+chip_smoke.py holds to the same bound (0.9985 of records agreed at 32x32 on
+an H100).  On integer-valued rows and rays every product and sum is exact
+in both, and there the pair pass (`mxu_nearest`) must agree bitwise.  On
+the lanes whose records all agree, both sides round op by op alike (the
+kernels are built with --fmad=false), so color / miss / rec agree to 1e-3
+absolute (the transcendentals are the only operations that may differ in
+the last place).
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ from rtm_tpu_torch.models.scenes import dragon_grid
 from rtm_tpu_torch.ops.kernels import mxu_kernel as tmk
 from rtm_tpu_torch.ops.kernels import trav_kernel as ttk
 from rtm_tpu_torch.ops.kernels.megakernel import _pack_camera
+from torch_mxu_cases import (N_TRIS_EDGES, frac_rays, int_rays, int_tables,
+                             model_key, nearest_culled, table_scene)
 
 pytestmark = pytest.mark.cuda
 
@@ -45,11 +49,15 @@ CASES = {
     "scene5": (5, 32, 32, 4, 1, 1),
     "grid2": ("grid2", 32, 32, 4, 1, 1),
     "scene2_tail_2frames": (2, 24, 20, 3, 2, 5),
+    "grid10": ("grid10", 64, 64, 4, 1, 1),
 }
 # name: (case, first slot, slots) of a dispatch window
 WINDOWS = {
     "scene3": ("scene3", 1000, 1500),
     "scene2_tail_2frames": ("scene2_tail_2frames", 100, 300),
+    "scene3_odd": ("scene3", 37, 1001),
+    "scene3_one_slot": ("scene3", 2049, 1),
+    "grid10_odd": ("grid10", 515, 777),
 }
 
 
@@ -146,6 +154,145 @@ def test_render_dispatch_on_the_card(cuda):
     diff = np.abs(got.cpu().numpy() - want.numpy()).max(axis=-1)
     assert diff.mean() <= 5e-3 and (diff > 2e-2).mean() <= 0.01
     assert (diff > 0.2).mean() <= 0.003
+
+
+def _random_tri_scene(n_tris, device, seed=0):
+    """n_tris triangles in front of the default camera (one large facing
+    it, the rest random, half of them facing it), over a ground sphere and
+    under the procedural sky."""
+    from rtm_tpu_torch import (Material, Mesh, MeshInstance, Scene,
+                               SphereDef, Triangle)
+    from rtm_tpu_torch.models import scenes
+
+    rng = np.random.default_rng(seed)
+    s = Scene(sky=scenes._procedural_sky())
+    s.add_material(Material((0.7, 0.6, 0.5), (1, 1, 1), 0.2, 0.1, 0, 1.0, -1))
+    s.add_sphere(SphereDef((0, -101, -2), 100.0, 0))
+    c = rng.uniform((-1.6, -0.6, -2.0), (1.6, 2.6, 1.0), size=(n_tris, 3))
+    e = rng.normal(size=(n_tris, 2, 3)) * 0.35
+    # the first one large, upright and facing the camera: every scene is hit
+    c[0], e[0] = (-0.8, 0.2, -1.0), ((1.6, 0.0, 0.0), (0.8, 1.6, 0.0))
+    s.add_mesh(Mesh.from_triangles([
+        Triangle(tuple(p), tuple(p + a), tuple(p + b))
+        for p, (a, b) in zip(c, np.asarray(e))]))
+    s.add_object(MeshInstance(mesh_id=0, material_id=0))
+    return rtm_tpu_torch.build_tracer_scene(s, device=device)
+
+
+@pytest.mark.parametrize("n_tris", N_TRIS_EDGES)
+def test_mxu_kernel_matches_plain_random_triangles(cuda, n_tris):
+    """Scenes of 1 to 2047 triangles (one to 16 chunks, full and partial
+    8-triangle groups) at 48x40, 3 bounces, 2 frames: the kernel's records
+    and outputs against the plain version's by the CASES criteria."""
+    st = _random_tri_scene(n_tris, cuda, seed=n_tris)
+    assert st.mxu_meta.n_tris == n_tris and st.mxu_meta.supported
+    cfg = rtm_tpu_torch.RenderConfig(width=48, height=40, max_bounces=3,
+                                     max_frames=2, draw_environment=True)
+    camf = _pack_camera(rtm_tpu_torch.Camera().spec(48, 40), cuda)
+    tabs = tmk.side_tables(st)
+    n = 48 * 40
+    k = tmk.mxu_trace(st, tabs, camf, 3, 0, n, cfg, return_hitrec=True)
+    p = tmk.mxu_trace_plain(st, tabs, camf, 3, 0, n, cfg,
+                            return_hitrec=True)
+    torch.cuda.synchronize()
+    assert bool(((p[3] & tmk.HR_TRI) != 0).any())      # triangles are hit
+    same = k[3] == p[3]
+    assert float(same.float().mean()) >= AGREE_MIN
+    lanes = same.all(dim=0)
+    for a, b in zip(k[:3], p[:3]):
+        if a is not None:
+            assert torch.isfinite(a).all()
+            assert float((a - b)[:, lanes].abs().max()) <= MAX_ABS_ERR
+
+
+def _nearest_pair(n_tris, device, alive_fn, seed, dup=False, n_rays=3000,
+                  span=4, frac=False):
+    """The pair pass on the card against its reference on the CPU: the
+    plain version's key on integer rays, the lane model's on fractional
+    ones (`frac`, whose lo parts the plain version does not take)."""
+    ma = int_tables(n_tris, seed=seed, dup=dup, span=span)
+    rays = (frac_rays if frac else int_rays)(n_rays, seed=seed + 1)
+    alive = alive_fn(torch.arange(n_rays))
+    before = tmk.mxu_nearest.launches
+    got = tmk.mxu_nearest(table_scene(ma, n_tris, device), rays.to(device),
+                          alive.to(device))
+    assert tmk.mxu_nearest.launches == before + 1
+    want = (nearest_culled(ma, n_tris, rays, alive, key=model_key) if frac
+            else nearest_culled(ma, n_tris, rays, alive))
+    return got.cpu(), want, alive
+
+
+@pytest.mark.parametrize("n_tris", N_TRIS_EDGES)
+def test_mxu_pair_pass_integer_bitwise(cuda, n_tris):
+    """The mma fragment layout, staging, test, packing and reductions held
+    exactly: on integer rows and rays (axis-aligned, NaN and inf ones
+    among them) the tensor-core pair pass gives the plain version's packed
+    key over the chunks its block's cull passes (nearest_culled) on
+    every live ray, and BIG on every dead one."""
+    got, want, alive = _nearest_pair(
+        n_tris, cuda, lambda i: (i * 2654435761 % 10) != 3, seed=n_tris)
+    assert int((want[alive] < 1e29).sum()) >= (50 if n_tris >= 34 else 1)
+    assert torch.equal(got[alive].view(torch.int32),
+                       want[alive].view(torch.int32))
+    assert (got[~alive] == tmk.BIG).all()
+
+
+@pytest.mark.parametrize("n_tris", N_TRIS_EDGES)
+def test_mxu_pair_pass_fractional_bitwise(cuda, n_tris):
+    """The ray tile's md and lo words and their ldmatrix slots held
+    exactly: on rays whose features split into three non-zero bf16 parts
+    (frac_rays) against small integer tables, where every product and sum
+    stays exact, the tensor-core pair pass gives the lane model's packed
+    key (model_key) over the chunks its block's cull passes on every live
+    ray, and BIG on every dead one."""
+    got, want, alive = _nearest_pair(
+        n_tris, cuda, lambda i: (i * 2654435761 % 10) != 3, seed=n_tris,
+        span=1, frac=True)
+    assert int((want[alive] < 1e29).sum()) >= (30 if n_tris >= 34 else 1)
+    assert torch.equal(got[alive].view(torch.int32),
+                       want[alive].view(torch.int32))
+    assert (got[~alive] == tmk.BIG).all()
+
+
+@pytest.mark.parametrize("case", ["duplicates", "one_live_lane",
+                                  "lane_31_alone", "tail_of_one",
+                                  "wide_rows"])
+def test_mxu_pair_pass_edges_bitwise(cuda, case):
+    """Duplicate triangles (the lower row wins), a single live lane in
+    each warp, a warp whose last lane alone is live, a dispatch whose last
+    block holds one ray, and vertices in [-16, 16] (A_lo words non-zero in
+    the edge rows too), all bitwise against the plain version."""
+    alive_fn = {"duplicates": lambda i: torch.ones_like(i, dtype=bool),
+                "one_live_lane": lambda i: i % 32 == (i // 32) % 32,
+                "lane_31_alone": lambda i: (i % 32 == 31) & (i // 32 % 3 == 0),
+                "tail_of_one": lambda i: i % 5 != 0,
+                "wide_rows": lambda i: i % 7 != 2}[case]
+    got, want, alive = _nearest_pair(
+        300, cuda, alive_fn, seed=11, dup=case == "duplicates",
+        n_rays=2049 if case == "tail_of_one" else 3000,
+        span=16 if case == "wide_rows" else 4)
+    assert torch.equal(got[alive].view(torch.int32),
+                       want[alive].view(torch.int32))
+    assert (got[~alive] == tmk.BIG).all()
+
+
+def test_mxu_nearest_rejects_what_the_kernel_does_not_take(cuda):
+    ma = int_tables(34, seed=2)
+    sc = table_scene(ma, 34, cuda)
+    rays = int_rays(64, seed=3).to(cuda)
+    alive = torch.ones(64, dtype=torch.bool, device=cuda)
+    before = tmk.mxu_nearest.launches
+    for r, a, what in ((rays.double(), alive, "rays"),
+                       (rays[:5], alive, "rays"),
+                       (rays, alive.int(), "alive"),
+                       (rays, alive[:10], "alive")):
+        with pytest.raises(ValueError, match=what):
+            tmk.mxu_nearest(sc, r, a)
+    bad = dataclasses.replace(sc.mxu_arrays,
+                              pair=sc.mxu_arrays.pair.float())
+    with pytest.raises(ValueError, match="pair"):
+        tmk.mxu_nearest(table_scene(bad, 34, cuda), rays, alive)
+    assert tmk.mxu_nearest.launches == before
 
 
 # trav kernel.  Kernel and plain version compute the same f32 operations in

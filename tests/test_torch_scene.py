@@ -67,24 +67,6 @@ def test_scene_tables_bitwise(sid):
     assert_scenes_equal(sj, st)
 
 
-@pytest.mark.parametrize("sid", [2, 3, "grid2"])
-def test_pair32_is_hi_plus_lo(sid):
-    """The CUDA kernel's f32 rows are the bf16 K-stack's hi + lo halves."""
-    from rtm_tpu_torch.ops.kernels.mxu_kernel import CHUNK, K, Q
-
-    st = rtm_tpu_torch.build_tracer_scene(host_scene(tscenes, sid), device="cpu")
-    ma, nc = st.mxu_arrays, st.mxu_meta.nc
-    pair = ma.pair.float().numpy()
-    rows = (pair[..., :10] + pair[..., 2 * K:2 * K + 10]).reshape(
-        nc, Q, CHUNK, 10).transpose(0, 2, 1, 3).reshape(nc * CHUNK, Q * 10)
-    np.testing.assert_array_equal(rows, ma.pair32.numpy())
-    # padding rows carry only the tdet = -1 constant
-    t = st.mxu_meta.n_tris
-    pad = ma.pair32.numpy()[t:].reshape(-1, Q, 10)
-    assert (pad[:, :3] == 0).all() and (pad[:, 3, :9] == 0).all()
-    assert (pad[:, 3, 9] == -1).all()
-
-
 @pytest.mark.parametrize("sid", [2, 3])
 def test_tracer_scene_from_numpy_carries_jax_scene(sid):
     """The JAX scene's leaves, carried across as NumPy arrays, give the
@@ -94,7 +76,7 @@ def test_tracer_scene_from_numpy_carries_jax_scene(sid):
     st = tracer_scene_from_numpy(arrays, meta, "cpu")
     assert_scenes_equal(sj, st)
     own = rtm_tpu_torch.build_tracer_scene(host_scene(tscenes, sid), device="cpu")
-    for f in ("pair32", "attr", "info", "cbox"):
+    for f in ("pair", "attr", "info", "cbox"):
         assert torch.equal(getattr(st.mxu_arrays, f),
                            getattr(own.mxu_arrays, f)), f
     # the carried tensors own their memory
