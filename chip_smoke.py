@@ -14,18 +14,27 @@ mxu tables take (`dragon_grid`, <= 2047 triangles), the trav path:
 kernel, at the same size, the wavefront2 path (cluster-sweep kernel) on
 that scene, the pallas path (intersect kernel) on scene 3, the
 differentiable path: `loss_and_grad` through the mxu record replay and
-wavefront2, and a few `inverse_render` steps, the megakernel path (scene 3,
-`dragon_grid(56)` and a textured `dragon_grid(16)` that auto sends to it),
-and the `python -m rtm_tpu_torch` command line.
+wavefront2, and a few `inverse_render` steps, soft primary visibility on
+the pallas route, the megakernel path (scene 3, `dragon_grid(56)` and a
+textured `dragon_grid(16)` that auto sends to it), the
+`python -m rtm_tpu_torch` command line, the scene editor and the browser
+viewer; and the native SAH builder and the shader-parity BVH traversal.
 
 Phases (each prints lines starting with its tag, and its seconds):
   [card]    nvidia-smi name and power limit, torch and CUDA versions
   [build]   nvcc build time (all five kernels, built in parallel) and ptxas
-            register report
+            register report; the native SAH builder's g++ build time
   [compare] mxu kernel vs plain version at 64x64, 4 bounces, 1 and 2
             frames: hitrec agreement >= 0.999, max abs error of color /
             miss / rec on the lanes whose hitrec agrees <= 1e-3, and the
             post-passed images within `images_close` (tests/conftest.py)
+  [bvh-native] build_tracer_scene(dragon_grid(16)) with the native SAH
+            builder and with the NumPy one: the tables bitwise equal, both
+            host build seconds
+  [bvh-traverse] build_bvh_scene + bounce_ray_bvh on scene 3's primary
+            rays at 64x64 against the dense nearest_triangle sweep: hits
+            equal, t within 1e-5, indices differing only on t ties
+  [trav-build] the [trav] scene's host build (native builder)
   [trav-compare] trav kernel vs plain version, same shapes, on scene 1
             (spheres only), scene 3 forced to trav (textured), and
             dragon_grid(11) and (56): >= 0.999 of lanes agree on color,
@@ -86,6 +95,12 @@ Phases (each prints lines starting with its tag, and its seconds):
             forward-loss ms, fwd+bwd ms, peak device memory, finite grads
   [inverse] inverse_render on scene 3 at 512x512 through "mxu": 5 Adam steps
             from a perturbed wall albedo (albedo only); the loss must fall
+  [soft]    render_loss(soft_tau=0.01) through "pallas" (the intersect
+            kernel): at 64x64 against "xla" with the same soft_tau by
+            [grad]'s tolerances, then loss_and_grad at 512x512, 8
+            bounces: forward ms, fwd+bwd ms, peak MiB, finite gradients;
+            [soft-profile] one such step under bench/profile.py's trace:
+            device busy time, the costliest kernels and ops
   [mega-compare] the megakernel vs its plain version at 64x64, 4 bounces:
             scene 3 (static and nearest-first order), scene 2 (2 frames)
             and dragon_grid(10) (static, nearest-first, cull off): >= 0.999
@@ -113,6 +128,16 @@ Phases (each prints lines starting with its tag, and its seconds):
             [mega-auto-profile]
   [cli]     `python -m rtm_tpu_torch render --backend megakernel` as a
             subprocess: exit 0 and a PNG
+  [editor]  SceneEditor over scene 3 with a ProgressiveRenderer on the card
+            (512x512, 8 bounces, auto): 4 frames, then a wall's material,
+            a sphere, a 2420-triangle mesh and an instance of it; each
+            edit's rebuild seconds, the reset, and the route (mxu, then
+            trav)
+  [view]    ViewerServer on the card at 512x512 with its render thread
+            (auto -> mxu): /frame.png, /state, /input resets, /edit
+            changes the frame, the render loop's ms/frame and a PNG
+            encode's, a clean stop; then Application + RenderFrame for a
+            few iterations
   [total]   the whole run's seconds
 
 The line before the last is the card's `nvidia-smi` name and power limit;
@@ -133,10 +158,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-BF16_TC_FLOP_PER_S = 989e12
+# the H100's data-sheet peak rates and the sweeps' operations per pair
+# (HBM_BYTES_PER_S, FP32_OPS_PER_S, BF16_TC_FLOP_PER_S, SWEEP_PAIR_OPS,
+# STRICT_PAIR_OPS, SLAB_OPS) live in rtm_tpu_torch/bench/profile.py; the
+# bound functions import them from there
 # one ray-triangle pair of the mxu kernel: on the tensor cores, the
 # non-zero products of the table's 16-bit rows (A_hi + A_lo) with the ray's
 # three bf16 parts (hi + md + lo) but A_lo . lo, 2 flop each: an edge row
@@ -158,14 +183,6 @@ TRAV_COMPARE_GRIDS = (11, TRAV_GRID)
 TRAV_WARM, TRAV_TIMED = 2, 16
 TILE = 1024                  # rtm_tpu's ray tile: the stats granule
 TILE_AGREE_MIN = 0.99
-# FP32 operations of one (ray, row) pair of the sweep kernels
-# (csrc/tri_sweep.cuh: det 6, tdet 6, udet 11, vdet 11, wdet 2, then the
-# min-chain gate 6 + max and division 2 + the best-t compare 1 for the
-# cluster sweep, or 5 compares + division + compare for the intersect
-# kernel's strict gate) and of one ray's slab test against a cluster box
-SWEEP_PAIR_OPS = 45
-STRICT_PAIR_OPS = 43
-SLAB_OPS = 25
 WF2_TIMED = 8
 # FP32 / INT32 operations per alive ray-bounce of the megakernel outside its
 # sweep: one sphere test per padded sphere (csrc/bounce_common.cuh
@@ -184,6 +201,12 @@ PALLAS_TIMED = 4
 PALLAS_BUDGET_S = 5.0        # one dragon_grid(56) pallas frame at most
 GRAD_RES = 64                # route-vs-route gradient check
 INVERSE_STEPS = 5
+BVH_NATIVE_GRID = 16         # dragon_grid(16): 5120 triangles
+BVH_TRAVERSE_RES = 64
+SOFT_TAU = 0.01
+EDIT_GRID = 11               # dragon_grid(11)'s soup: 2420 triangles
+VIEW_WAIT_S = 120.0
+APP_ITERATIONS = 3
 
 MAIN_RES = 512
 MAIN_BOUNCES = 8
@@ -264,6 +287,8 @@ def mxu_bound(scene, cfg, n: int):
     ray-bounce, real triangle of a chunk the ray's BLOCK-slot block
     passed); the alive masks and passes are the plain version's MxuStats
     on the same inputs.  Dead rays feed no output the path reads."""
+    from rtm_tpu_torch.bench.profile import (HBM_BYTES_PER_S, FP32_OPS_PER_S,
+                                             BF16_TC_FLOP_PER_S)
     import torch
     from rtm_tpu_torch import Camera
     from rtm_tpu_torch.ops.kernels.megakernel import _pack_camera
@@ -318,6 +343,7 @@ def trav_bound(scene, cfg, stats, n: int):
     rate, against the node visits and triangle tests this run's rays
     needed (`stats`, from an untimed call on the same inputs) at the FP32
     rate."""
+    from rtm_tpu_torch.bench.profile import HBM_BYTES_PER_S, FP32_OPS_PER_S
     from rtm_tpu_torch.ops.kernels.trav_kernel import trav_side_tables
 
     ta = scene.trav_arrays
@@ -640,14 +666,8 @@ def kernel_and_postpass_ms(scene, cfg, reps: int):
 def phase_profile(scene, cfg, frames: int, frame_ms: float,
                   tag: str = "profile", backend: str = "auto"):
     """Where a path's frame time goes: torch.profiler over `frames`
-    frames of render_progressive.  Prints the wall time per frame (with the
-    profiler on), the device's busy time per frame (union of the device
-    events' intervals), the idle share against the profiled wall time and
-    against `frame_ms` (the same frame timed without the profiler), the
-    device launches per frame, the kernels that take the most device time,
-    and the PyTorch ops (with their input shapes) that launched them."""
+    frames of render_progressive, reported by report_profile."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from rtm_tpu_torch import Camera, render_progressive
@@ -661,6 +681,19 @@ def phase_profile(scene, cfg, frames: int, frame_ms: float,
         render_progressive(scene, cam, cfg, frames, backend=backend)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(prof, tag, frames, wall_ms, frame_ms)
+
+
+def report_profile(prof, tag: str, n: int, wall_ms: float, ref_ms: float,
+                   unit: str = "frame"):
+    """Print, per `unit` (n of them in the profiled window): the wall time
+    (with the profiler on), the device's busy time (union of the device
+    events' intervals), the idle share against the profiled wall time and
+    against `ref_ms` (the same work timed without the profiler), the
+    device launches, the kernels that take the most device time, and the
+    PyTorch ops (with their input shapes) that launched them."""
+    from torch.autograd import DeviceType
+
     dev = sorted(((e.time_range.start, e.time_range.end, e.name)
                   for e in prof.events() if e.device_type == DeviceType.CUDA),
                  key=lambda x: x[0])
@@ -680,16 +713,16 @@ def phase_profile(scene, cfg, frames: int, frame_ms: float,
         acc = by_name.setdefault(name, [0.0, 0])
         acc[0] += e - s
         acc[1] += 1
-    busy_ms = busy_us / 1e3 / frames
-    print(f"[{tag}] frames={frames} wall_ms/frame={wall_ms / frames:.4f} "
-          f"device_busy_ms/frame={busy_ms:.4f} idle_share="
-          f"{1.0 - busy_ms / (wall_ms / frames):.4f} "
-          f"idle_share_unprofiled={1.0 - busy_ms / frame_ms:.4f} "
-          f"device_launches/frame={len(dev) / frames:.1f}", flush=True)
+    busy_ms = busy_us / 1e3 / n
+    print(f"[{tag}] {unit}s={n} wall_ms/{unit}={wall_ms / n:.4f} "
+          f"device_busy_ms/{unit}={busy_ms:.4f} idle_share="
+          f"{1.0 - busy_ms / (wall_ms / n):.4f} "
+          f"idle_share_unprofiled={1.0 - busy_ms / ref_ms:.4f} "
+          f"device_launches/{unit}={len(dev) / n:.1f}", flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (us, cnt) in top:
-        print(f"[{tag}]   {us / 1e3 / frames:9.4f} ms/frame  "
-              f"{cnt / frames:6.1f}/frame  {name[:90]}", flush=True)
+        print(f"[{tag}]   {us / 1e3 / n:9.4f} ms/{unit}  "
+              f"{cnt / n:6.1f}/{unit}  {name[:90]}", flush=True)
 
     def self_dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -698,8 +731,8 @@ def phase_profile(scene, cfg, frames: int, frame_ms: float,
     ops = [e for e in prof.key_averages(group_by_input_shape=True)
            if e.device_type == DeviceType.CPU and self_dev_us(e) > 0.0]
     for e in sorted(ops, key=lambda e: -self_dev_us(e))[:8]:
-        print(f"[{tag}]   op {self_dev_us(e) / 1e3 / frames:9.4f} ms/frame"
-              f"  {e.count / frames:6.1f}/frame  {e.key}  "
+        print(f"[{tag}]   op {self_dev_us(e) / 1e3 / n:9.4f} ms/{unit}"
+              f"  {e.count / n:6.1f}/{unit}  {e.key}  "
               f"{str(e.input_shapes)[:100]}", flush=True)
 
 
@@ -902,6 +935,8 @@ def sweep_bound(pack, bands, passed):
     one pair test per (alive ray, real triangle row) of each cluster its
     tile passed (`passed`: the plain version's (tiles, C) pass matrices).
     Dead rays and padding rows feed no output the path reads."""
+    from rtm_tpu_torch.bench.profile import (HBM_BYTES_PER_S, FP32_OPS_PER_S,
+                                             SWEEP_PAIR_OPS, SLAB_OPS)
     tab_bytes = sum(x.numel() * x.element_size() for x in (
         pack.tri_feats, pack.boxes, pack.offsets_dev, pack.widths_dev))
     rows = real_rows(pack)
@@ -927,6 +962,8 @@ def intersect_bound(feats, boxes, nc, n_tris, rays, passed):
     version's (tiles, C) pass matrices; a cluster's last rows may be
     padding), at the FP32 rate.  The kernel has no alive mask: every ray's
     winner is an output."""
+    from rtm_tpu_torch.bench.profile import (HBM_BYTES_PER_S, FP32_OPS_PER_S,
+                                             STRICT_PAIR_OPS, SLAB_OPS)
     import torch
 
     real = (n_tris - 128 * torch.arange(nc, device=feats.device)).clamp(
@@ -1150,11 +1187,13 @@ def grad_rig():
 MATERIAL_GRADS = ("albedo", "emission_color", "emission_power")
 
 
-def grad_parity(sm: Smoke, name: str, scene, checks: dict):
+def grad_parity(sm: Smoke, name: str, scene, checks: dict,
+                ref_kw: dict | None = None, tag: str = "grad"):
     """At GRAD_RES x GRAD_RES, 8 bounces: each route's gradients against
-    the xla route's; prints per field the largest |diff| / (1e-3 |xla| +
-    1e-5), the ratio to rtm_tpu's tolerance (<= 1 meets it), and checks
-    the fields `checks` names for the route (rtol, atol, fields)."""
+    the xla route's (with `ref_kw`, e.g. soft_tau); prints per field the
+    largest |diff| / (1e-3 |xla| + 1e-5), the ratio to rtm_tpu's
+    tolerance (<= 1 meets it), and checks the fields `checks` names for
+    the route (rtol, atol, fields)."""
     import torch
     from rtm_tpu_torch import Camera, RenderConfig
     from rtm_tpu_torch.diff import extract_params, loss_and_grad
@@ -1166,7 +1205,7 @@ def grad_parity(sm: Smoke, name: str, scene, checks: dict):
     cam = Camera().spec(res, res)
     target = torch.zeros((res, res, 3), device=scene.device)
     _, g_ref = loss_and_grad(params, scene, cam, target, 1, cfg,
-                             backend="xla", remat=False)
+                             backend="xla", remat=False, **(ref_kw or {}))
     for route, (rtol, atol, fields, kw) in checks.items():
         _, g = loss_and_grad(params, scene, cam, target, 1, cfg,
                              backend=route, remat=False, **kw)
@@ -1182,7 +1221,7 @@ def grad_parity(sm: Smoke, name: str, scene, checks: dict):
             if fields is None or f in fields:
                 sm.check(torch.allclose(a, b, rtol=rtol, atol=atol),
                          f"grad {name} {route} {f} vs xla at {res}x{res}")
-        print(f"[grad] {name} {route} vs xla {res}x{res} (checked "
+        print(f"[{tag}] {name} {route} vs xla {res}x{res} (checked "
               f"{'all' if fields is None else ','.join(fields)} at rtol "
               f"{rtol}, atol {atol}): max |diff| / (1e-3 |xla| + 1e-5) "
               + " ".join(worst), flush=True)
@@ -1285,6 +1324,8 @@ def mega_bound(scene, pack, cfg, stats, n: int):
     and shading of each alive ray-bounce (`stats`: the plain version's
     MegaStats on the same inputs).  Dead rays feed no output the path
     reads."""
+    from rtm_tpu_torch.bench.profile import (HBM_BYTES_PER_S, FP32_OPS_PER_S,
+                                             SWEEP_PAIR_OPS, SLAB_OPS)
     import torch
     from rtm_tpu_torch.ops.kernels.megakernel import DEFAULT_RAY_TILE
 
@@ -1531,6 +1572,372 @@ def phase_mega_auto(sm: Smoke):
     return scene, cfg, ms
 
 
+def phase_bvh_native(sm: Smoke):
+    """build_tracer_scene(dragon_grid(BVH_NATIVE_GRID)) on the card with the
+    native SAH builder and with the NumPy one: the tables bitwise equal,
+    and both host build times."""
+    import torch
+    from rtm_tpu_torch import build_tracer_scene
+    from rtm_tpu_torch.models.scene import scene_diff
+    from rtm_tpu_torch.models.scenes import dragon_grid
+
+    host = dragon_grid(BVH_NATIVE_GRID)
+    secs = {}
+    scenes = {}
+    for name, native in (("native", True), ("numpy", False)):
+        t0 = time.perf_counter()
+        scenes[name] = build_tracer_scene(host, use_native=native)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    diff = scene_diff(scenes["native"], scenes["numpy"])
+    print(f"[bvh-native] dragon_grid{BVH_NATIVE_GRID} "
+          f"tris={scenes['native'].num_triangles} "
+          f"scene_build_s native={secs['native']:.3f} "
+          f"numpy={secs['numpy']:.3f} tables_bitwise_equal={not diff}",
+          flush=True)
+    sm.check(not diff, f"bvh-native tables differ: {diff}")
+
+
+def phase_bvh_traverse(sm: Smoke):
+    """build_bvh_scene + bounce_ray_bvh (the shader-parity traversal) on
+    the card over scene 3's primary rays at BVH_TRAVERSE_RES^2, against the
+    dense nearest_triangle sweep of the world-space triangles on the same
+    rays, as tests/test_bvh.py holds it: hits equal, t within 1e-5, and
+    indices that differ only where t ties."""
+    import numpy as np
+    import torch
+    from rtm_tpu_torch import Camera, RenderConfig, build_tracer_scene
+    from rtm_tpu_torch.accel.bvh import build_bvh, build_bvh_scene
+    from rtm_tpu_torch.models.scenes import load_scene
+    from rtm_tpu_torch.ops.bvh_traverse import BvhArrays, bounce_ray_bvh
+    from rtm_tpu_torch.ops.intersect import TriFeatures, nearest_triangle
+    from rtm_tpu_torch.ops.trace_ref import camera_rays, pixel_grid
+
+    res = BVH_TRAVERSE_RES
+    host = load_scene(3)
+    bs = build_bvh_scene(host)
+    arrays = BvhArrays.from_scene(bs)
+    cfg = RenderConfig(width=res, height=res)
+    x, y = pixel_grid(res, res, arrays.box_min.device)
+    o, d, _ = camera_rays(Camera().spec(res, res), cfg, x, y, 1, 1)
+    k = max(st.leaf_tris_max for st in bs.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t, tri, inst = bounce_ray_bvh(arrays, o, d, max_leaf_tris=k)
+    torch.cuda.synchronize()
+    trav_ms = (time.perf_counter() - t0) * 1e3
+    world = build_tracer_scene(host, order="buffer")
+    with torch.no_grad():
+        t_d, i_d = nearest_triangle(o, d, TriFeatures.build(
+            world.tri_wa, world.tri_wb, world.tri_wc))
+    # the BVH's (reordered triangle, instance) as a world buffer index
+    orders = [build_bvh(m).order.astype(np.int64) for m in host.meshes]
+    roots = bs.mesh_model_root.astype(np.int64)
+    offs = np.cumsum([0] + [host.meshes[ob.mesh_id].num_triangles
+                            for ob in host.objects])
+    tri_n = tri.cpu().numpy().astype(np.int64)
+    inst_n = inst.cpu().numpy()
+    wid = np.full(len(tri_n), -1)
+    for r in np.nonzero(tri_n >= 0)[0]:
+        m = host.objects[inst_n[r]].mesh_id
+        wid[r] = offs[inst_n[r]] + orders[m][tri_n[r] - roots[m]]
+    t_b, t_dn, i_dn = t.cpu().numpy(), t_d.cpu().numpy(), i_d.cpu().numpy()
+    hit = tri_n >= 0
+    hits_equal = bool(np.array_equal(hit, i_dn >= 0))
+    t_close = bool(np.allclose(t_b[hit], t_dn[hit], rtol=1e-5, atol=1e-5))
+    differ = hit & (wid != i_dn)
+    ties = bool(np.allclose(t_b[differ], t_dn[differ]))
+    print(f"[bvh-traverse] scene3 {res}x{res} primary rays: "
+          f"instances={len(host.objects)} nodes={len(bs.box_min)} "
+          f"max_leaf_tris={k} traverse_ms={trav_ms:.2f} hits={int(hit.sum())}"
+          f" hits_equal={hits_equal} t_within_1e-5={t_close} "
+          f"index_differs={int(differ.sum())} (t ties: {ties})", flush=True)
+    sm.check(hits_equal and hit.any(), "bvh-traverse hits differ from the "
+             "dense sweep")
+    sm.check(t_close, "bvh-traverse t beyond 1e-5 of the dense sweep")
+    sm.check(ties, "bvh-traverse indices differ off a t tie")
+
+
+def phase_soft(sm: Smoke, scene, target_full):
+    """Soft primary visibility (render_loss(soft_tau=SOFT_TAU)) through the
+    pallas route: at GRAD_RES^2 against the xla route with the same
+    soft_tau by [grad]'s tolerances (the rig: every field; scene 3: the
+    material fields), then one loss_and_grad at the main path's shape:
+    forward ms, fwd+bwd ms, peak MiB, every gradient finite."""
+    import torch
+    from rtm_tpu_torch import Camera, RenderConfig
+    from rtm_tpu_torch.diff import extract_params, loss_and_grad, render_loss
+    from rtm_tpu_torch.ops.kernels.intersect_kernel import intersect_sweep
+
+    tight = (1e-3, 1e-5)
+    soft = {"soft_tau": SOFT_TAU}
+    grad_parity(sm, "rig", grad_rig(), {"pallas": (*tight, None, soft)},
+                ref_kw=soft, tag="soft")
+    grad_parity(sm, "scene3", scene,
+                {"pallas": (*tight, MATERIAL_GRADS, soft)}, ref_kw=soft,
+                tag="soft")
+
+    params = extract_params(scene)
+    cfg = RenderConfig(width=MAIN_RES, height=MAIN_RES,
+                       max_bounces=MAIN_BOUNCES, draw_environment=True)
+    cam = Camera().spec(MAIN_RES, MAIN_RES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        render_loss(params, scene, cam, target_full, 1, cfg,
+                    backend="pallas", remat=False, **soft)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    intersect_sweep.launches = 0
+    t0 = time.perf_counter()
+    loss, g = loss_and_grad(params, scene, cam, target_full, 1, cfg,
+                            backend="pallas", remat=False, **soft)
+    torch.cuda.synchronize()
+    fb_ms = (time.perf_counter() - t0) * 1e3
+    launches = intersect_sweep.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    finite = all(bool(torch.isfinite(t).all()) for t in g.tensors())
+    geo = float(g.tri_verts.abs().max())
+    print(f"[soft] pallas soft_tau={SOFT_TAU} scene3 {MAIN_RES}x{MAIN_RES} "
+          f"{MAIN_BOUNCES} bounces: loss={float(loss):.6f} "
+          f"forward_loss_ms={fwd_ms:.2f} (peak {fwd_mib:.0f} MiB) "
+          f"fwd+bwd_ms={fb_ms:.2f} peak_mib={peak:.0f} "
+          f"intersect_launches={launches} grads_finite={finite} "
+          f"max|d/d tri_verts|={geo:.6e}", flush=True)
+    sm.check(finite and bool(torch.isfinite(loss)), "soft grads not finite")
+    sm.check(launches == MAIN_BOUNCES, f"soft: {launches} intersect "
+             f"launches, not one per bounce ({MAIN_BOUNCES})")
+    # where the fwd+bwd goes: one profiled step (bench/profile.py trace,
+    # a Chrome trace beside the kernel libraries)
+    from rtm_tpu_torch.bench.profile import trace
+    from rtm_tpu_torch.ops.kernels import build
+
+    with trace(build.BUILD_DIR / "soft_trace") as prof:
+        t0 = time.perf_counter()
+        loss_and_grad(params, scene, cam, target_full, 1, cfg,
+                      backend="pallas", remat=False, **soft)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(prof, "soft-profile", 1, prof_ms, fb_ms, unit="step")
+
+
+def path_launches():
+    return {name: k.launches for name, k in path_kernels().items()}
+
+
+def zero_launches():
+    for k in path_kernels().values():
+        k.launches = 0
+
+
+def phase_editor(sm: Smoke):
+    """A SceneEditor over scene 3's host scene with a ProgressiveRenderer on
+    the card (auto -> mxu): 4 frames, then a wall's material (the
+    accumulation resets, frame 1 changes), a sphere (the count grows), and
+    a mesh beyond the mxu tables with an instance of it (the route moves
+    from the mxu kernel to trav).  Prints each edit's rebuild seconds and
+    the route."""
+    import torch
+    from rtm_tpu_torch import RenderConfig, load_scene
+    from rtm_tpu_torch.models.scenes import dragon_grid
+    from rtm_tpu_torch.runtime.editor import SceneEditor
+    from rtm_tpu_torch.runtime.renderer import ProgressiveRenderer
+
+    cfg = RenderConfig(width=MAIN_RES, height=MAIN_RES,
+                       max_bounces=MAIN_BOUNCES, draw_environment=True,
+                       accumulate=True)
+    host = load_scene(3)
+    t0 = time.perf_counter()
+    r = ProgressiveRenderer(host, cfg=cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    ed = SceneEditor(host, r)
+    zero_launches()
+    frame1 = r.step().clone()
+    for _ in range(3):
+        r.step()
+    ms = r.last_ms
+    counts = path_launches()
+    print(f"[editor] scene3 {MAIN_RES}x{MAIN_RES} {MAIN_BOUNCES} bounces on "
+          f"{r.scene.device}: build_s={first_s:.3f} frames={r.frame_index} "
+          f"last_frame_ms={ms:.2f} "
+          f"route={dispatch_route(r.scene, cfg, 'auto')} launches={counts}",
+          flush=True)
+    sm.check(r.frame_index == 4 and counts["mxu"] == 4,
+             f"editor: 4 frames through mxu, got {r.frame_index} / {counts}")
+
+    soup = build_tracer_scene_soup(dragon_grid(EDIT_GRID))
+    edits = (
+        ("set_material (red wall -> green)",
+         lambda: ed.apply({"op": "set_material", "index": 3,
+                           "albedo": [0.0, 1.0, 0.0]})),
+        ("add_sphere",
+         lambda: ed.apply({"op": "add_sphere", "position": [0.0, 1.0, -1.0],
+                           "radius": 0.5, "material_id": 2})),
+        (f"add_mesh dragon_grid{EDIT_GRID} soup ({len(soup)} tris)",
+         lambda: ed.add_mesh(soup)),
+        ("add_instance of it",
+         lambda: ed.apply({"op": "add_instance", "mesh_id":
+                           len(host.meshes) - 1, "material_id": 0,
+                           "position": [0.0, 0.0, -40.0]})),
+    )
+    for name, edit in edits:
+        spheres = r.scene.num_spheres
+        edit()
+        zero_launches()
+        img = r.step()
+        counts = path_launches()
+        route = dispatch_route(r.scene, cfg, "auto")
+        print(f"[editor] {name}: rebuild_s={ed.last_rebuild_s:.4f} "
+              f"tris={r.scene.num_triangles} spheres={r.scene.num_spheres} "
+              f"route={route} frame_index={r.frame_index} "
+              f"frame_ms={r.last_ms:.2f} launches={counts}", flush=True)
+        sm.check(r.frame_index == 1 and bool(torch.isfinite(img).all()),
+                 f"editor {name}: accumulation not reset or image not finite")
+        sm.check(counts[route] == 1 and sum(counts.values()) == 1,
+                 f"editor {name}: launches {counts} for route {route}")
+        if name.startswith("set_material"):
+            sm.check(not torch.equal(img, frame1),
+                     "editor set_material: frame 1 unchanged")
+        if name == "add_sphere":
+            sm.check(r.scene.num_spheres == spheres + 1,
+                     "editor add_sphere: sphere count unchanged")
+    sm.check(route == "trav" and r.scene.num_triangles > 2047,
+             f"editor: route {route} after the big mesh, not trav")
+
+
+def build_tracer_scene_soup(host):
+    """The world-space triangle soup (T,3,3) of a host scene."""
+    import torch
+    from rtm_tpu_torch import build_tracer_scene
+
+    st = build_tracer_scene(host, order="buffer", device="cpu")
+    return torch.stack([st.tri_wa, st.tri_wb, st.tri_wc], 1).numpy()
+
+
+def phase_view(sm: Smoke):
+    """The browser viewer on the card at the main path's shape: a
+    ViewerServer(port=0) with its render thread (auto -> mxu) and the
+    scene editor; GET /frame.png decodes to 512x512x3, /state's frame
+    index grows, POST /input with a key resets the accumulation, POST
+    /edit changes the frame; the render loop's ms/frame; then the server
+    stops and its threads end.  Then Application + RenderFrame for a few
+    iterations."""
+    import json
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from rtm_tpu_torch import RenderConfig, load_scene
+    from rtm_tpu_torch.io.image import decode_png, encode_png
+    from rtm_tpu_torch.runtime.events import KeyPressed
+    from rtm_tpu_torch.runtime.frame import Application, RenderFrame
+    from rtm_tpu_torch.runtime.renderer import ProgressiveRenderer
+    from rtm_tpu_torch.viewer import ViewerServer
+
+    cfg = RenderConfig(width=MAIN_RES, height=MAIN_RES,
+                       max_bounces=MAIN_BOUNCES, draw_environment=True,
+                       accumulate=True)
+    host = load_scene(3)
+    srv = ViewerServer(ProgressiveRenderer(host, cfg=cfg), port=0,
+                       host_scene=host, scene_id=3)
+    base = f"http://127.0.0.1:{srv.port}"
+
+    def get(path):
+        return urllib.request.urlopen(base + path, timeout=60).read()
+
+    def post(path, payload):
+        req = urllib.request.Request(base + path, method="POST",
+                                     data=json.dumps(payload).encode())
+        return json.loads(urllib.request.urlopen(req, timeout=60).read())
+
+    def wait(cond, what, timeout=VIEW_WAIT_S):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                sm.check(False, f"view: timed out waiting for {what}")
+                return False
+            time.sleep(0.02)
+        return True
+
+    def state():
+        return json.loads(get("/state"))
+
+    after_key = []
+    srv.bus.register(KeyPressed,
+                     lambda e: after_key.append(srv.renderer.frame_index))
+    zero_launches()
+    srv.start()
+    try:
+        wait(lambda: srv.frames_encoded >= 3, "3 frames")
+        img = decode_png(get("/frame.png"))
+        s0 = state()
+        wait(lambda: state()["frame_index"] > s0["frame_index"],
+             "the frame index to grow")
+        s1 = state()
+        sm.check(img.shape == (MAIN_RES, MAIN_RES, 3) and img.std() > 0,
+                 f"view: /frame.png shape {img.shape}")
+        post("/input", {"keys": ["w"]})
+        wait(lambda: bool(after_key), "the key event")
+        sm.check(after_key[:1] == [0], f"view: /input did not reset the "
+                 f"accumulation (frame index {after_key[:1]} after it)")
+        n0 = srv.frames_encoded
+        wait(lambda: srv.frames_encoded >= n0 + 3, "frames after the key")
+        before = decode_png(get("/frame.png")).astype(np.float64).mean()
+        resp = post("/edit", {"op": "set_material", "index": 3,
+                              "emission_color": [1.0, 1.0, 1.0],
+                              "emission_power": 4.0})
+        n1 = srv.frames_encoded
+        wait(lambda: srv.frames_encoded >= n1 + 3, "frames after the edit")
+        after = decode_png(get("/frame.png")).astype(np.float64).mean()
+        sm.check(bool(resp.get("ok")) and after > before * 1.05,
+                 f"view: /edit (an emissive wall) moved the mean from "
+                 f"{before:.2f} to {after:.2f}")
+        sf = state()
+    finally:
+        srv.stop()
+    counts = path_launches()
+    alive = [t.name for t in srv._threads if t.is_alive()]
+    print(f"[view] scene3 {MAIN_RES}x{MAIN_RES} {MAIN_BOUNCES} bounces "
+          f"backend={sf['backend']} device={sf['device']}: png "
+          f"{img.shape[1]}x{img.shape[0]}, frame_index {s0['frame_index']} "
+          f"-> {s1['frame_index']}, reset by /input to {after_key[:1]}, "
+          f"/edit mean {before:.2f} -> {after:.2f}, render_loop_ms/frame="
+          f"{sf['frame_ms']:.2f} fps={sf['fps']:.2f} frames_encoded="
+          f"{srv.frames_encoded} launches={counts} threads_alive={alive}",
+          flush=True)
+    host = srv.renderer.accum.cpu().numpy() / max(srv.renderer.frame_index, 1)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        encode_png(host[::-1])
+    print(f"[view] one {MAIN_RES}x{MAIN_RES} /frame.png encode on the host "
+          f"(render thread): {(time.perf_counter() - t0) / 3 * 1e3:.2f} ms",
+          flush=True)
+    sm.check(not alive, f"view: threads still alive after stop: {alive}")
+    sm.check(counts["mxu"] > 0 and sum(counts.values()) == counts["mxu"],
+             f"view: launches {counts}, not the mxu kernel's")
+
+    small = RenderConfig(width=MAIN_RES, height=MAIN_RES,
+                         max_bounces=MAIN_BOUNCES, accumulate=True)
+    app = Application(lambda: RenderFrame(scene_id=3, cfg=small),
+                      max_iterations=APP_ITERATIONS)
+    t0 = time.perf_counter()
+    n = app.run()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    out = app.frame.image
+    print(f"[view] Application + RenderFrame: {n} iterations in {sec:.2f} s "
+          f"(last {app.last_ms:.2f} ms), image {tuple(out.shape)} on "
+          f"{out.device}, finite={bool(torch.isfinite(out).all())}",
+          flush=True)
+    sm.check(n == APP_ITERATIONS and out.is_cuda
+             and bool(torch.isfinite(out).all()),
+             "view: Application/RenderFrame did not render on the card")
+
+
 def phase_cli(sm: Smoke):
     """`python -m rtm_tpu_torch render --backend megakernel` as a user runs
     it, in a subprocess: it must exit 0 and write a PNG."""
@@ -1572,6 +1979,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from rtm_tpu_torch import Camera, load_scene, render_dispatch
+    from rtm_tpu_torch.accel.native import bvh_native
     from rtm_tpu_torch.io.image import save_png
     from rtm_tpu_torch.models.scenes import dragon_grid
     from rtm_tpu_torch.ops.kernels import build
@@ -1599,6 +2007,10 @@ def main() -> int:
             for line in text.splitlines():
                 if "registers" in line or "spill" in line or "error" in line:
                     print(f"[build] {name}: {line.strip()}", flush=True)
+        t0 = time.perf_counter()
+        bvh_native.load()
+        print(f"[build] native SAH builder (accel/native/bvh.cpp, g++) "
+              f"built in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # widest dragon grid the mxu tables take (k=10 with the stand-in mesh)
     per_dragon = dragon_grid(1).meshes[0].num_triangles
@@ -1610,12 +2022,16 @@ def main() -> int:
                                  ("scene3", load_scene(3)),
                                  (f"dragon_grid{grid_k}",
                                   dragon_grid(grid_k))])
+    with sm.phase("bvh-native"):
+        phase_bvh_native(sm)
+    with sm.phase("bvh-traverse"):
+        phase_bvh_traverse(sm)
     with sm.phase("trav-build"):
         # the [trav] scene, built once for [trav-compare] and [trav]
         tscene, tbuild_s = build_scene(dragon_grid(TRAV_GRID))
         print(f"[trav-build] dragon_grid{TRAV_GRID} "
-              f"tris={tscene.num_triangles} scene_build_s={tbuild_s:.3f}",
-              flush=True)
+              f"tris={tscene.num_triangles} scene_build_s={tbuild_s:.3f} "
+              f"(native SAH builder)", flush=True)
     with sm.phase("trav-compare"):
         trav_err = phase_trav_compare(
             sm, [("scene1", load_scene(1)), ("scene3", load_scene(3))]
@@ -1736,6 +2152,8 @@ def main() -> int:
         phase_grad(sm, scene, img)
     with sm.phase("inverse"):
         phase_inverse(sm, scene)
+    with sm.phase("soft"):
+        phase_soft(sm, scene, img)
 
     with sm.phase("mega-compare"):
         wide, _ = build_scene(dragon_grid(grid_k))
@@ -1768,6 +2186,10 @@ def main() -> int:
         del ascene
     with sm.phase("cli"):
         phase_cli(sm)
+    with sm.phase("editor"):
+        phase_editor(sm)
+    with sm.phase("view"):
+        phase_view(sm)
 
     record = {"kernels": [{
         "name": "mxu_trace",

@@ -10,11 +10,12 @@ framework is headless-first, so the entry point is a CLI (SURVEY C1):
   scenes      list built-in scenes
   save-scene  export a built-in scene to the .rtm.json format
   optimize    inverse-rendering demo (Adam on scene params vs a target)
+  view        browser viewer: progressive render + scene editor over HTTP
 
 Commands run on the card; `--device cpu` asks for the CPU, where the
 kernels' plain versions run.  Without a CUDA device and without
-`--device cpu` a command exits non-zero with a message.  `bench` and `view`
-are not ported: they exit non-zero naming their ROADMAP.md items.
+`--device cpu` a command exits non-zero with a message.  `bench` is not
+ported: it exits non-zero naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -24,8 +25,6 @@ import sys
 _NOT_PORTED = {
     "bench": "the headline benchmark is the JAX package's bench.py; the "
              "port's benchmark entry is ROADMAP.md queue 1 item 13",
-    "view": "the browser viewer (viewer/server.py) is not ported yet: "
-            "ROADMAP.md queue 1 item 11",
 }
 
 
@@ -78,7 +77,7 @@ def _device(args):
     return torch.device(args.device)
 
 
-def _setup(args):
+def _setup(args, want_host_scene: bool = False):
     from rtm_tpu_torch import (Camera, RenderConfig, build_tracer_scene,
                                load_scene)
     from rtm_tpu_torch.ops.trace_ref import auto_backend
@@ -100,6 +99,8 @@ def _setup(args):
     backend = args.backend
     if backend == "auto":
         backend = auto_backend(scene, dev.type)
+    if want_host_scene:
+        return scene, cam, cfg, backend, host
     return scene, cam, cfg, backend
 
 
@@ -191,6 +192,27 @@ def cmd_scenes(args) -> int:
     return 0
 
 
+def cmd_view(args) -> int:
+    """Serve the browser viewer until Ctrl-C: a progressive renderer on the
+    chosen device and backend (auto re-resolves after every edit) with the
+    scene editor attached."""
+    import dataclasses
+
+    from rtm_tpu_torch.runtime.renderer import ProgressiveRenderer
+    from rtm_tpu_torch.viewer import ViewerServer
+
+    scene, cam, cfg, _, host = _setup(args, want_host_scene=True)
+    cfg = dataclasses.replace(cfg, accumulate=True)   # progressive viewer
+    renderer = ProgressiveRenderer(scene, cam, cfg, backend=args.backend)
+    server = ViewerServer(renderer, port=args.port, host_scene=host,
+                          scene_id=args.scene)
+    print(f"viewer: http://127.0.0.1:{server.port}  (device="
+          f"{scene.device.type}, backend={args.backend}; Ctrl-C to stop)",
+          flush=True)
+    server.start(block=True)
+    return 0
+
+
 def cmd_save_scene(args) -> int:
     """Export a built-in scene to the .rtm.json format (editable, reloadable
     via --scene-file on any command)."""
@@ -271,10 +293,10 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="scene.rtm.json")
     p.set_defaults(fn=cmd_save_scene)
 
-    p = sub.add_parser("view", help="not ported (ROADMAP.md item 11)")
+    p = sub.add_parser("view", help="browser viewer with scene editor")
     _add_render_args(p)
     p.add_argument("--port", type=int, default=8654)
-    p.set_defaults(fn=_not_ported)
+    p.set_defaults(fn=cmd_view)
 
     p = sub.add_parser("optimize", help="inverse-rendering demo")
     _add_render_args(p)

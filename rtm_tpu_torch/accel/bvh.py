@@ -20,9 +20,11 @@ Parity with the reference builder (RayTracing/src/BVH.{h,cpp}):
   * Stats{buildTime, triCnt, nodeCnt, leafCnt, leafDepth, leafTris, SAH}
                                                            (BVH.cpp:240-258)
 
-This is the NumPy builder only, with the per-axis bucket sweep and the
-partition vectorized (same splits, same triangle order as rtm_tpu's NumPy
-builder); a native builder is a later step of the port.
+`build_bvh` runs the native C++ builder (accel/native, built with g++ at
+first use) unless asked for this NumPy builder, whose per-axis bucket sweep
+and partition are vectorized (same splits, same triangle order as
+rtm_tpu's NumPy builder).  Both give bitwise the same arrays; a failed
+native build raises, it never falls back.
 """
 from __future__ import annotations
 
@@ -122,9 +124,15 @@ class BVH:
         return len(self.box_min)
 
 
-def build_bvh(mesh: Mesh) -> BVH:
+def build_bvh(mesh: Mesh, use_native: bool = True) -> BVH:
+    """The SAH hierarchy of `mesh`: by the native builder, or by the NumPy
+    builder when use_native=False (bitwise the same arrays)."""
     t0 = time.perf_counter()
-    result = _build_python(mesh)
+    if use_native:
+        from .native import bvh_native
+        result = bvh_native.build(mesh)
+    else:
+        result = _build_python(mesh)
     result.stats.build_time_ms = (time.perf_counter() - t0) * 1e3
     return result
 
@@ -245,3 +253,68 @@ def _build_python(mesh: Mesh) -> BVH:
     return BVH(
         box_min=np.stack(hier_min), box_max=np.stack(hier_max),
         buffer_region=np.stack(hier_region), order=indices, stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# Scene-level flattening: SceneWrapper parity (SceneWrapper.cpp:10-46)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class BvhScene:
+    """Concatenated per-mesh BVHs + reordered triangles + instance
+    wrappers: the buffer layout the reference binds (SURVEY C25), host
+    NumPy arrays.  Used by the traversal validation path
+    (ops/bvh_traverse.py)."""
+
+    box_min: np.ndarray          # (B,3)
+    box_max: np.ndarray          # (B,3)
+    buffer_region: np.ndarray    # (B,2) u32 mesh-local semantics as in shader
+    tri_verts: np.ndarray        # (T,3,3) reordered, local space
+    tri_uvs: np.ndarray          # (T,3,2) reordered
+    mesh_bvh_root: np.ndarray    # (M,) u32  (MeshWrapper.bvhRoot)
+    mesh_model_root: np.ndarray  # (M,) u32  (MeshWrapper.modelRoot)
+    inst_world_to_local: np.ndarray  # (I,4,4) f32
+    inst_mesh_id: np.ndarray     # (I,) i32
+    inst_material_id: np.ndarray  # (I,) i32
+    stats: list = field(default_factory=list)
+
+
+def build_bvh_scene(scene) -> BvhScene:
+    """One hierarchy per mesh (local space), concatenated, with each
+    instance's world-to-local matrix."""
+    box_min, box_max, region = [], [], []
+    tv, tu = [], []
+    roots, model_roots = [], []
+    stats = []
+    box_off = tri_off = 0
+    for mesh in scene.meshes:
+        bvh = build_bvh(mesh)
+        roots.append(box_off)
+        model_roots.append(tri_off)
+        box_off += bvh.num_nodes
+        tri_off += mesh.num_triangles
+        box_min.append(bvh.box_min)
+        box_max.append(bvh.box_max)
+        region.append(bvh.buffer_region)
+        tv.append(mesh.verts[bvh.order])
+        tu.append(mesh.uvs[bvh.order])
+        stats.append(bvh.stats)
+
+    def cat(parts, shape, dtype=np.float32):
+        return (np.concatenate(parts).astype(dtype) if parts
+                else np.zeros(shape, dtype))
+
+    objs = scene.objects
+    return BvhScene(
+        box_min=cat(box_min, (0, 3)), box_max=cat(box_max, (0, 3)),
+        buffer_region=cat(region, (0, 2), np.uint32),
+        tri_verts=cat(tv, (0, 3, 3)), tri_uvs=cat(tu, (0, 3, 2)),
+        mesh_bvh_root=np.asarray(roots, np.uint32),
+        mesh_model_root=np.asarray(model_roots, np.uint32),
+        inst_world_to_local=(
+            np.stack([o.inv_model_matrix() for o in objs]).astype(np.float32)
+            if objs else np.zeros((0, 4, 4), np.float32)),
+        inst_mesh_id=np.asarray([o.mesh_id for o in objs], np.int32),
+        inst_material_id=np.asarray([o.material_id for o in objs], np.int32),
+        stats=stats,
+    )

@@ -62,7 +62,8 @@ def _node_ranges(buffer_region: np.ndarray):
             np.array(is_leaf, bool))
 
 
-def bvh_cluster_slices(world_verts: np.ndarray, max_tris: int = 128):
+def bvh_cluster_slices(world_verts: np.ndarray, max_tris: int = 128,
+                       use_native: bool = True):
     """Cluster a world-space triangle soup by SAH-BVH treelet cut.
 
     world_verts: (T,3,3) f32.  Returns (perm (T,) int64 triangle
@@ -70,11 +71,13 @@ def bvh_cluster_slices(world_verts: np.ndarray, max_tris: int = 128):
     partition [0, T) of the *permuted* order and every slice has <=
     max_tris triangles.  Oversized SAH leaves (the cost rule can keep large
     flat regions as one leaf) are chunked.
+    use_native: build the hierarchy with the native builder (else the
+    NumPy one; the same arrays either way).
     """
     t = len(world_verts)
     if t == 0:
         return np.zeros(0, np.int64), (), None
-    bvh = build_bvh(Mesh(world_verts, None))
+    bvh = build_bvh(Mesh(world_verts, None), use_native)
     lo, hi, is_leaf = _node_ranges(bvh.buffer_region)
 
     slices: list[tuple[int, int]] = []

@@ -13,7 +13,8 @@ Routes to the gradient, as in rtm_tpu:
   * backend="wavefront2", optionally in `bands` slot bands: the cluster
     sweep kernel per bounce;
   * backend="xla" or "pallas": the per-bounce reference renderer, through
-    the chunked sweep or the intersect kernel.
+    the chunked sweep or the intersect kernel; with soft_tau > 0, soft
+    primary visibility (diff/silhouette.py) on either of them.
 The fused forward kernels (trav, megakernel) have no gradient, as
 rtm_tpu's `pallas_call`s carry no VJP: `loss_and_grad` raises there.
 """
@@ -46,14 +47,6 @@ def _check_mxu(scene, cfg: RenderConfig, soft_tau: float):
             "backend='wavefront2' or 'xla'")
 
 
-def _check_soft(soft_tau: float):
-    if soft_tau > 0.0:
-        raise NotImplementedError(
-            "render_loss(soft_tau > 0): soft primary visibility "
-            "(diff/silhouette.py) is not ported to rtm_tpu_torch yet: "
-            "ROADMAP.md queue 1 item 10")
-
-
 def _bands_of(cfg: RenderConfig, bands: int, target):
     """(band width, [(offset, target band (band,3), mask (band,))]) of a
     banded loss: contiguous dispatch-slot bands, the last one padded and
@@ -73,8 +66,10 @@ def _bands_of(cfg: RenderConfig, bands: int, target):
                    mask[k * band:(k + 1) * band]) for k in range(bands)]
 
 
-def _banded(backend: str, bands: int, cfg: RenderConfig) -> bool:
-    return backend == "wavefront2" and bands > 1 and cfg.max_bounces > 1
+def _banded(backend: str, bands: int, cfg: RenderConfig,
+            soft_tau: float) -> bool:
+    return (backend == "wavefront2" and bands > 1 and cfg.max_bounces > 1
+            and soft_tau == 0.0)
 
 
 def _band_sq_sums(params, scene, cam, target, frame_index, cfg, bands,
@@ -98,24 +93,36 @@ def render_loss(params: SceneParams, scene, cam, target, frame_index: int,
     """Mean squared pixel error of a single dispatch against `target`
     ((H, W, 3) on the scene's device).
 
+    soft_tau > 0 enables soft primary visibility (diff/silhouette.py):
+    geometry gradients pick up the silhouette edge term the detached argmin
+    drops, at the cost of a ~tau-wide soft edge band in the loss.  It runs
+    on the per-bounce routes ("xla", "pallas"); the fused and wavefront
+    routes raise ValueError there, as in rtm_tpu, and `bands` is ignored.
+
     bands > 1 (wavefront2 only): the loss as a sum over `bands` contiguous
     dispatch-slot bands of masked partial L2 sums (the same value up to
-    summation order).  soft_tau > 0 (soft primary visibility) is not
-    ported: NotImplementedError naming its ROADMAP item."""
+    summation order)."""
     if backend == "mxu":
         _check_mxu(scene, cfg, soft_tau)
         from ..ops.trace_ref import render_mxu_replay
         full = apply_params(scene, params, rebuild_tri_geometry)
         img = render_mxu_replay(full, cam, frame_index, cfg, remat=remat)
         return ((img - target) ** 2).mean()
-    _check_soft(soft_tau)
-    if _banded(backend, bands, cfg):
+    if _banded(backend, bands, cfg, soft_tau):
         return sum(_band_sq_sums(params, scene, cam, target, frame_index, cfg,
                                  bands, rebuild_tri_geometry)
                    ) / float(cfg.num_pixels * 3)
     full = apply_params(scene, params, rebuild_tri_geometry)
-    img = render_dispatch(full, cam, frame_index, cfg, backend=backend,
-                          remat=remat)
+    if soft_tau > 0.0:
+        from ..ops.trace_ref import pixel_grid
+        from .silhouette import render_soft_primary
+        x, y = pixel_grid(cfg.width, cfg.height, full.device)
+        img = render_soft_primary(full, cam, x, y, frame_index, cfg,
+                                  tau=soft_tau, backend=backend, remat=remat)
+        img = img.reshape(cfg.height, cfg.width, 3)
+    else:
+        img = render_dispatch(full, cam, frame_index, cfg, backend=backend,
+                              remat=remat)
     return ((img - target) ** 2).mean()
 
 
@@ -140,8 +147,7 @@ def loss_and_grad(params: SceneParams, scene, cam, target, frame_index: int,
     before the next band's forward, so only one band's graph is held at a
     time; the band gradients are summed."""
     leaves = _leaves(params)
-    if _banded(backend, bands, cfg):
-        _check_soft(soft_tau)
+    if _banded(backend, bands, cfg, soft_tau):
         loss = torch.zeros((), device=target.device)
         total = None
         for part in _band_sq_sums(leaves, scene, cam, target, frame_index,

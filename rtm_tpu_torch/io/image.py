@@ -137,3 +137,25 @@ def encode_png(img: np.ndarray) -> bytes:
     header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
     return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
             + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """(H,W,3) u8 of a PNG written by encode_png (8-bit RGB, filter 0),
+    so callers without PIL can read the viewer's frames back."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+            if body[8:10] != b"\x08\x02":
+                raise ValueError("decode_png reads 8-bit RGB only")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    if (rows[:, 0] != 0).any():
+        raise ValueError("decode_png reads PNG filter type 0 only")
+    return rows[:, 1:].reshape(h, w, 3)

@@ -211,13 +211,16 @@ def _morton_order(wa: np.ndarray, wb: np.ndarray, wc: np.ndarray):
 
 def build_tracer_scene(scene: Scene, order: str = "bvh",
                        cluster_max_tris: int = 128,
-                       env_model: str = "map", device=None) -> TracerScene:
+                       env_model: str = "map", device=None,
+                       use_native: bool = True) -> TracerScene:
     """Flatten the host scene into the device layout (SceneWrapper parity).
 
     order: 'bvh' (default — SAH-BVH treelet cut, accel/clusters.py),
     'morton' (global Morton sort) or 'buffer' (reference traversal order).
     device: where the tensors live; None means the card, and raises
     RuntimeError when there is none.
+    use_native: the SAH builder, native C++ (accel/native) or NumPy; the
+    tables are bitwise the same either way.
     """
     dev = _resolve_device(device)
 
@@ -275,7 +278,7 @@ def build_tracer_scene(scene: Scene, order: str = "bvh",
             from ..accel.clusters import bvh_cluster_slices
             perm, cluster_slices, bvh = bvh_cluster_slices(
                 np.stack([tri_wa, tri_wb, tri_wc], axis=1),
-                max_tris=cluster_max_tris)
+                max_tris=cluster_max_tris, use_native=use_native)
             # The trav tables' hierarchy over the permuted triangles.
             # Rebuilding it there gives the same nodes in the identity
             # order: each node's triangles already lie left block, then
@@ -309,7 +312,7 @@ def build_tracer_scene(scene: Scene, order: str = "bvh",
     n_materials = max(len(scene.materials), 1)   # Materials is never empty
     host = (tri_wa, tri_wb, tri_wc, tri_normal, tri_mat, tex_ids_np,
             n_materials, len(sph_pos))
-    tt = build_trav_tables(*host, bvh=trav_bvh)
+    tt = build_trav_tables(*host, bvh=trav_bvh, use_native=use_native)
     mt = build_mxu_tables(*host)
 
     def t(a):
@@ -332,6 +335,29 @@ def build_tracer_scene(scene: Scene, order: str = "bvh",
         mxu_meta=mt.meta,
         env_sun=(env_model == "sun"),
     )
+
+
+def scene_diff(a: TracerScene, b: TracerScene, prefix: str = "") -> list:
+    """Names of the fields in which two TracerScenes differ: tensors
+    (Materials and the mxu and trav tables included) bitwise, static
+    metadata by ==.  Empty when the tables are the same (the native and
+    NumPy SAH builders give such scenes)."""
+    out = []
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        name = prefix + f.name
+        if isinstance(va, torch.Tensor):
+            ua, ub = (v.detach().cpu().contiguous().reshape(-1)
+                      for v in (va, vb))
+            if not (va.dtype == vb.dtype and va.shape == vb.shape
+                    and (ua.numel() == 0 or torch.equal(
+                        ua.view(torch.uint8), ub.view(torch.uint8)))):
+                out.append(name)
+        elif dataclasses.is_dataclass(va):
+            out += scene_diff(va, vb, name + ".")
+        elif va != vb:
+            out.append(name)
+    return out
 
 
 _TENSOR_FIELDS = ("sph_pos", "sph_radius", "sph_mat", "tri_wa", "tri_wb",

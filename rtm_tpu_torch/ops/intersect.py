@@ -17,7 +17,8 @@ rtm_tpu pins these K=3 contractions to full f32 (`_mm`, Precision.HIGHEST)
 because the TPU's default matmul precision is bf16.  On the card a float32
 matmul may run in TF32 depending on the caller's `torch.backends` flags, so
 the port computes them elementwise (`_mm3`): full f32 whatever the flags.
-`aabb_hit` (the BVH-traversal path) waits for ROADMAP item 10.
+`aabb_hit` is the slab test of the BVH-traversal path
+(ops/bvh_traverse.py).
 """
 from __future__ import annotations
 
@@ -198,3 +199,23 @@ def nearest_triangle(origin, direction, feats: TriFeatures, chunk: int = 512):
             + origin[:, 2] * fw.n[:, 2]) - fw.an
     t = tdet / torch.where(hit, det, 1.0)
     return torch.where(hit, t, FLT_MAX), best_i.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# AABB (the BVH-traversal path)
+# ---------------------------------------------------------------------------
+
+def aabb_hit(origin, direction, bmin, bmax):
+    """Slab test (shader hitBox :305-318): entry distance or FLT_MAX.
+
+    origin/direction (...,3) broadcast against bmin/bmax (...,3).
+    Returns tNear where 0 <= tFar and tNear <= tFar, else FLT_MAX (a
+    negative tNear when the origin is inside the box, as the reference
+    returns it)."""
+    inv = 1.0 / direction
+    lbf = (bmin - origin) * inv
+    rtb = (bmax - origin) * inv
+    t_near = torch.minimum(lbf, rtb).amax(dim=-1)
+    t_far = torch.maximum(lbf, rtb).amin(dim=-1)
+    hit = (0.0 <= t_far) & (t_near <= t_far)
+    return torch.where(hit, t_near, FLT_MAX)

@@ -162,11 +162,13 @@ def _empty_arrays(k: int) -> TravArrays:
 
 def build_trav_tables(tri_wa, tri_wb, tri_wc, tri_normal, tri_mat,
                       mat_texture_id, n_materials: int, n_spheres: int,
-                      max_leaf_tris: int = 16, bvh=None) -> TravTables:
+                      max_leaf_tris: int = 16, bvh=None,
+                      use_native: bool = True) -> TravTables:
     """The geometry tables (CPU tensors) and meta from host NumPy arrays,
     with rtm_tpu's adaptive leaf size, so the TravBVH and TravMeta are the
     ones rtm_tpu builds.  bvh: the accel.bvh BVH over these triangles when
-    the caller has it (built here otherwise)."""
+    the caller has it (built here otherwise, by the native builder unless
+    use_native=False)."""
     from ...accel.bvh import build_bvh
     from ...accel.trav import build_trav
     from ...models.mesh import Mesh
@@ -182,7 +184,7 @@ def build_trav_tables(tri_wa, tri_wb, tri_wc, tri_normal, tri_mat,
     if t > 0:
         verts = np.stack([tri_wa, tri_wb, tri_wc], axis=1).astype(np.float32)
         if bvh is None:
-            bvh = build_bvh(Mesh(verts, None))
+            bvh = build_bvh(Mesh(verts, None), use_native)
         while True:
             trav = build_trav(verts, max_leaf_tris=k, bvh=bvh)
             n_nodes, n_leaves = trav.num_nodes, trav.num_leaves

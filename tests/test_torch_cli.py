@@ -74,16 +74,16 @@ def test_cli_render_debug_heatmap(tmp_path):
 
 def test_cli_needs_the_card_unless_asked(tmp_path, capsys, monkeypatch):
     """No silent CPU fallback: without a card and without --device cpu the
-    command exits non-zero with a message; bench and view name their
-    ROADMAP items."""
+    command exits non-zero with a message (view too, before it serves);
+    bench names its ROADMAP item."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = tmp_path / "r.png"
     assert t_cli(RENDER + ["--out", str(out)]) == 2
     assert "--device cpu" in capsys.readouterr().err and not out.exists()
     assert t_cli(["bench"]) == 2
     assert "item 13" in capsys.readouterr().err
-    assert t_cli(["view", "--device", "cpu"]) == 2
-    assert "item 11" in capsys.readouterr().err
+    assert t_cli(["view", "--port", "0"]) == 2
+    assert "--device cpu" in capsys.readouterr().err
 
 
 def _same_host_scene(a, b):

@@ -245,7 +245,9 @@ def test_inverse_render_mxu_replay_recovers_albedo(rig):
 def test_loud_errors(rig):
     """The grad dispatch raises, never reroutes: the mxu route refuses the
     flat-shade preview, soft_tau and scenes beyond its tables; soft
-    primary visibility is not ported (ROADMAP item 10)."""
+    primary visibility refuses the fused and wavefront routes, as
+    rtm_tpu's bounce_payload does (on xla and pallas it is held against
+    rtm_tpu: test_soft_tau_grads_match_jax)."""
     _, st = rig
     cam = rtm_tpu_torch.Camera().spec(W, H)
     target = torch.zeros((H, W, 3))
@@ -261,7 +263,27 @@ def test_loud_errors(rig):
         st, mxu_meta=st.mxu_meta._replace(supported=False))
     with pytest.raises(ValueError, match="mxu table limits"):
         td.loss_and_grad(p, big, cam, target, 1, cfg, backend="mxu")
-    for backend in ("xla", "wavefront2", "pallas"):
-        with pytest.raises(NotImplementedError, match="item 10"):
+    for backend in ("wavefront2", "megakernel"):
+        with pytest.raises(ValueError, match="bounce_payload backend"):
             td.loss_and_grad(p, st, cam, target, 1, cfg, backend=backend,
                              soft_tau=0.05)
+
+
+@pytest.mark.parametrize("route", ["xla", "pallas"])
+def test_soft_tau_grads_match_jax(rig, route):
+    """loss_and_grad(soft_tau=0.05) on the rig against jax.value_and_grad
+    of rtm_tpu's render_loss(soft_tau=0.05) on its xla route, run op by op
+    (without its jax.jit, whose fused multiply-adds break the rig's exact
+    barycentric ties on the centre pixel column), at rtm_tpu's tolerance;
+    the silhouette term moves the sphere gradients off the hard route's."""
+    sj, st = rig
+    jcfg, _ = _cfgs()
+    jl, jg = jax.value_and_grad(j_render_loss.__wrapped__)(
+        j_extract(sj), sj, rtm_tpu.Camera().spec(W, H),
+        jnp.zeros((H, W, 3), jnp.float32), jnp.uint32(1), jcfg,
+        backend="xla", remat=False, soft_tau=0.05)
+    loss, g = _port_grads(st, route, soft_tau=0.05)
+    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
+    _assert_grads_close(g, jg)
+    _, hard = _port_grads(st, route)
+    assert not torch.allclose(g.sph_pos, hard.sph_pos, rtol=RTOL, atol=ATOL)

@@ -27,8 +27,8 @@ def host_scene(pkg_scenes, sid):
 
 def jax_scene(sid):
     """rtm_tpu's TracerScene built through its NumPy BVH builder, the one
-    the port keeps (rtm_tpu's native builder orders tied SAH splits of
-    instanced copies differently)."""
+    the port's builders match bitwise (rtm_tpu's native builder orders
+    tied SAH splits of instanced copies differently)."""
     from rtm_tpu.models import scenes as jscenes
 
     mp = pytest.MonkeyPatch()

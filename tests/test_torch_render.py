@@ -1,6 +1,6 @@
 """rtm_tpu_torch's full-frame entry points vs rtm_tpu's, and the port's
 rules: entry points on the card unless the caller asks for the CPU, loud
-errors for everything not ported yet, and no import of JAX.  (The xla,
+errors where rtm_tpu raises, and no import of JAX.  (The xla,
 pallas and wavefront2 frames are held against rtm_tpu in
 test_torch_intersect.py and test_torch_wavefront2.py.)
 
@@ -31,7 +31,7 @@ from rtm_tpu_torch.models import scenes as tscenes
 from rtm_tpu_torch.ops.kernels import mxu_kernel as tmk
 from rtm_tpu_torch.ops.kernels import trav_kernel as ttk
 from rtm_tpu_torch.ops.trace_ref import auto_backend
-from test_torch_parity import host_scene, jax_scene
+from test_torch_parity import carry, host_scene, jax_scene
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -178,32 +178,51 @@ def test_auto_backend_resolution():
     assert auto_backend(big, "cuda") == "trav"
 
 
+def _soft_loss_pair(bounces, backend):
+    """render_loss(soft_tau=0.05) on scene 2 at 16x16: rtm_tpu's (its xla
+    route, op by op) and the port's on `backend`, against a grey target."""
+    from rtm_tpu.diff import extract_params as j_extract
+    from rtm_tpu.diff import render_loss as j_render_loss
+
+    sj = jax_scene(2)
+    st = carry(sj)
+    jcfg, cfg = _cfgs(16, 16, bounces)
+    want = j_render_loss.__wrapped__(
+        j_extract(sj), sj, rtm_tpu.Camera().spec(16, 16),
+        jnp.full((16, 16, 3), 0.5, jnp.float32), jnp.uint32(1), jcfg,
+        backend="xla", soft_tau=0.05)
+    got = rtm_tpu_torch.render_loss(
+        rtm_tpu_torch.extract_params(st), st,
+        rtm_tpu_torch.Camera().spec(16, 16), torch.full((16, 16, 3), 0.5), 1,
+        cfg, backend=backend, soft_tau=0.05)
+    return float(got), float(want)
+
+
 @pytest.mark.parametrize("backend", ["xla", "pallas", "megakernel",
                                      "wavefront2"])
 def test_unported_backends_raise(backend):
-    """What each backend does not carry yet raises NotImplementedError
-    naming its ROADMAP item: the soft primary visibility loss (item 10)."""
-    st = _port_scene(2)
-    _, cfg = _cfgs(16, 16, 3)
-    cam = rtm_tpu_torch.Camera().spec(16, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        rtm_tpu_torch.render_loss(
-            rtm_tpu_torch.extract_params(st), st, cam,
-            torch.zeros((16, 16, 3)), 1, cfg, backend=backend,
-            soft_tau=0.05)
+    """The soft primary visibility loss (soft_tau > 0) on each backend:
+    xla and pallas (the intersect kernel's plain version here) give
+    rtm_tpu's loss within rtol 1e-5; megakernel and wavefront2 raise
+    ValueError from the per-bounce sweep, as rtm_tpu's do."""
+    if backend in ("megakernel", "wavefront2"):
+        with pytest.raises(ValueError, match="bounce_payload backend"):
+            _soft_loss_pair(3, backend)
+        return
+    got, want = _soft_loss_pair(3, backend)
+    assert np.isfinite(got) and got > 0.0
+    np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
 def test_unported_configurations_raise():
-    """soft_tau raises on the flat preview too, an unknown backend raises,
-    and a scene beyond both the mxu and the trav tables no longer raises:
-    it renders through the megakernel (its plain version on the CPU)."""
+    """soft_tau on the flat preview renders and gives rtm_tpu's loss, an
+    unknown backend raises, and a scene beyond both the mxu and the trav
+    tables no longer raises: it renders through the megakernel (its
+    plain version on the CPU)."""
     st = _port_scene(2)
     cam = rtm_tpu_torch.Camera().spec(16, 16)
-    _, flat = _cfgs(16, 16, 1)
-    with pytest.raises(NotImplementedError, match="soft primary visibility"):
-        rtm_tpu_torch.render_loss(rtm_tpu_torch.extract_params(st), st, cam,
-                                  torch.zeros((16, 16, 3)), 1, flat,
-                                  soft_tau=0.05)
+    got, want = _soft_loss_pair(1, "xla")
+    np.testing.assert_allclose(got, want, rtol=1e-5)
     _, cfg = _cfgs(16, 16, 3)
     beyond = dataclasses.replace(
         st, mxu_meta=st.mxu_meta._replace(supported=False),
@@ -255,7 +274,16 @@ def test_port_never_imports_jax():
             "rtm_tpu_torch/ops/kernels/trav_kernel.py",
             "rtm_tpu_torch/ops/kernels/sweep_kernel.py",
             "rtm_tpu_torch/ops/wavefront2.py",
-            "rtm_tpu_torch/diff/inverse.py"} <= names
+            "rtm_tpu_torch/diff/inverse.py",
+            "rtm_tpu_torch/diff/silhouette.py",
+            "rtm_tpu_torch/accel/native/bvh_native.py",
+            "rtm_tpu_torch/ops/bvh_traverse.py",
+            "rtm_tpu_torch/runtime/checkpoint.py",
+            "rtm_tpu_torch/runtime/editor.py",
+            "rtm_tpu_torch/runtime/events.py",
+            "rtm_tpu_torch/runtime/frame.py",
+            "rtm_tpu_torch/bench/profile.py",
+            "rtm_tpu_torch/viewer/server.py"} <= names
     banned = ("jax", "jaxlib", "ml_dtypes", "rtm_tpu")
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imported_modules(f)

@@ -1,9 +1,10 @@
 """rtm_tpu_torch scene build vs rtm_tpu: every table bitwise equal.
 
-The port keeps rtm_tpu's NumPy BVH builder (its ctypes native builder is a
-later slice), so the JAX side here builds with the NumPy builder too: the
-two rtm_tpu builders order tied SAH splits differently on instanced
-copies such as dragon_grid(2).
+The port's native SAH builder computes a plane's cost as both NumPy
+builders do, so its tables are bitwise rtm_tpu's NumPy builder's
+(test_torch_native_bvh.py); the JAX side here builds with that NumPy
+builder, since rtm_tpu's own native builder orders tied SAH splits
+differently on instanced copies such as dragon_grid(2).
 """
 from __future__ import annotations
 

@@ -91,7 +91,7 @@ def test_build_bvh_matches_rtm_tpu_numpy_builder(sid):
     from rtm_tpu_torch.models.mesh import Mesh as TMesh
 
     verts = _soup(sid)
-    got = tbvh.build_bvh(TMesh(verts, None))
+    got = tbvh.build_bvh(TMesh(verts, None), use_native=False)
     want = jbvh._build_python(JMesh(verts, None))
     for f in ("box_min", "box_max", "buffer_region", "order"):
         a, b = getattr(got, f), getattr(want, f)
