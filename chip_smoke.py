@@ -18,7 +18,10 @@ wavefront2, and a few `inverse_render` steps, soft primary visibility on
 the pallas route, the megakernel path (scene 3, `dragon_grid(56)` and a
 textured `dragon_grid(16)` that auto sends to it), the
 `python -m rtm_tpu_torch` command line, the scene editor and the browser
-viewer; and the native SAH builder and the shader-parity BVH traversal.
+viewer; the native SAH builder and the shader-parity BVH traversal; and
+the multi-GPU layer (rtm_tpu_torch/parallel): every kernel per band, and
+spawned worlds of one rank over NCCL and of four sharing the card over
+gloo (the machine has one card).
 
 Phases (each prints lines starting with its tag, and its seconds):
   [card]    nvidia-smi name and power limit, torch and CUDA versions
@@ -126,6 +129,13 @@ Phases (each prints lines starting with its tag, and its seconds):
             per tile-bounce, the plain version's time, agreement and bound,
             frame 1 against the wavefront2 path's by images_close;
             [mega-auto-profile]
+  [shard-band] render_band in one process, no process group: the bands of
+            a 1-, 3- and 4-way split against render_dispatch at 512x512,
+            8 bounces: scene 3 on mxu (bitwise at 1 and 4 ranks, whose
+            bands are whole 256-slot cull blocks; >= 99.9% of pixels at
+            3) and pallas (bitwise), dragon_grid(56) on trav (bitwise),
+            the megakernel and wavefront2 (images_close); launches per
+            split
   [cli]     `python -m rtm_tpu_torch render --backend megakernel` as a
             subprocess: exit 0 and a PNG
   [editor]  SceneEditor over scene 3 with a ProgressiveRenderer on the card
@@ -138,6 +148,16 @@ Phases (each prints lines starting with its tag, and its seconds):
             changes the frame, the render loop's ms/frame and a PNG
             encode's, a clean stop; then Application + RenderFrame for a
             few iterations
+  [shard-nccl] a spawned world of one rank over NCCL (scene 3, 512x512,
+            8 bounces): render_sharded(mxu) bitwise render_dispatch,
+            sharded_loss_and_grad(mxu) against loss_and_grad(mxu) within
+            rtol 3e-4 / atol 2e-6, three make_train_step steps lower the
+            loss; ms per sharded frame against render_dispatch, ms per
+            gradient all-reduce, peak MiB
+  [shard-gloo] the same with four ranks sharing the one card over gloo
+            (NCCL refuses two ranks on one GPU), gradients through mxu
+            replay and wavefront2, the double-count scale within 0.01 of
+            1, the frame and the parameters bitwise equal on every rank
   [total]   the whole run's seconds
 
 The line before the last is the card's `nvidia-smi` name and power limit;
@@ -207,6 +227,14 @@ SOFT_TAU = 0.01
 EDIT_GRID = 11               # dragon_grid(11)'s soup: 2420 triangles
 VIEW_WAIT_S = 120.0
 APP_ITERATIONS = 3
+
+# the sharded phases: band splits in one process, then spawned worlds
+SHARD_WORLDS = (1, 3, 4)
+SHARD_GLOO_WORLD = 4
+SHARD_REPS = 5
+SHARD_TRAIN_STEPS = 3
+SHARD_RTOL, SHARD_ATOL = 3e-4, 2e-6   # rtm_tpu's sharded-gradient bound
+SHARD_TIMEOUT_S = 240.0
 
 MAIN_RES = 512
 MAIN_BOUNCES = 8
@@ -552,36 +580,6 @@ def build_scene(host_scene):
     return scene, time.perf_counter() - t0
 
 
-def path_kernels():
-    """backend -> the wrapper of the kernel that backend's path launches."""
-    from rtm_tpu_torch.ops.kernels.intersect_kernel import intersect_sweep
-    from rtm_tpu_torch.ops.kernels.megakernel import mega_trace
-    from rtm_tpu_torch.ops.kernels.mxu_kernel import mxu_trace
-    from rtm_tpu_torch.ops.kernels.sweep_kernel import cluster_sweep
-    from rtm_tpu_torch.ops.kernels.trav_kernel import trav_trace
-
-    return {"mxu": mxu_trace, "trav": trav_trace, "megakernel": mega_trace,
-            "wavefront2": cluster_sweep, "pallas": intersect_sweep}
-
-
-def dispatch_route(scene, cfg, backend: str) -> str:
-    """The backend render_dispatch takes for `backend` on this scene: auto
-    resolution, then the table-limit fallbacks mxu -> trav -> megakernel
-    (megakernel_fits) -> wavefront2, as ops/trace_ref.py runs them."""
-    from rtm_tpu_torch.ops.kernels.megakernel import megakernel_fits
-    from rtm_tpu_torch.ops.trace_ref import auto_backend
-
-    route = (auto_backend(scene, scene.device.type) if backend == "auto"
-             else backend)
-    if route == "mxu" and not scene.mxu_meta.supported:
-        route = "trav"
-    if route == "trav" and not scene.trav_meta.supported:
-        route = "megakernel"
-    if route == "megakernel" and not megakernel_fits(scene, cfg):
-        route = "wavefront2"
-    return route
-
-
 def drive(sm: Smoke, tag: str, scene, build_s: float, frames_warm: int,
           frames_timed: int, backend_expected: str = "mxu",
           backend: str = "auto"):
@@ -593,13 +591,15 @@ def drive(sm: Smoke, tag: str, scene, build_s: float, frames_warm: int,
     (cfg, image, ms/frame, launches of the expected kernel)."""
     import torch
     from rtm_tpu_torch import Camera, RenderConfig, render_progressive
+    from rtm_tpu_torch.ops.kernels import kernel_wrappers
+    from rtm_tpu_torch.ops.trace_ref import resolve_route
 
-    kernels = path_kernels()
+    kernels = kernel_wrappers()
     cfg = RenderConfig(width=MAIN_RES, height=MAIN_RES,
                        max_bounces=MAIN_BOUNCES, max_frames=1,
                        draw_environment=True, accumulate=True)
     cam = Camera().spec(cfg.width, cfg.height)
-    resolved = dispatch_route(scene, cfg, backend)
+    resolved = resolve_route(scene, cfg, backend)
     sm.check(scene.device.type == "cuda", f"{tag} scene not on the card")
     sm.check(resolved == backend_expected,
              f"{tag} {backend} resolved to {resolved}, not "
@@ -1725,11 +1725,15 @@ def phase_soft(sm: Smoke, scene, target_full):
 
 
 def path_launches():
-    return {name: k.launches for name, k in path_kernels().items()}
+    from rtm_tpu_torch.ops.kernels import kernel_wrappers
+
+    return {name: k.launches for name, k in kernel_wrappers().items()}
 
 
 def zero_launches():
-    for k in path_kernels().values():
+    from rtm_tpu_torch.ops.kernels import kernel_wrappers
+
+    for k in kernel_wrappers().values():
         k.launches = 0
 
 
@@ -1743,6 +1747,7 @@ def phase_editor(sm: Smoke):
     import torch
     from rtm_tpu_torch import RenderConfig, load_scene
     from rtm_tpu_torch.models.scenes import dragon_grid
+    from rtm_tpu_torch.ops.trace_ref import resolve_route
     from rtm_tpu_torch.runtime.editor import SceneEditor
     from rtm_tpu_torch.runtime.renderer import ProgressiveRenderer
 
@@ -1764,7 +1769,7 @@ def phase_editor(sm: Smoke):
     print(f"[editor] scene3 {MAIN_RES}x{MAIN_RES} {MAIN_BOUNCES} bounces on "
           f"{r.scene.device}: build_s={first_s:.3f} frames={r.frame_index} "
           f"last_frame_ms={ms:.2f} "
-          f"route={dispatch_route(r.scene, cfg, 'auto')} launches={counts}",
+          f"route={resolve_route(r.scene, cfg, 'auto')} launches={counts}",
           flush=True)
     sm.check(r.frame_index == 4 and counts["mxu"] == 4,
              f"editor: 4 frames through mxu, got {r.frame_index} / {counts}")
@@ -1790,7 +1795,7 @@ def phase_editor(sm: Smoke):
         zero_launches()
         img = r.step()
         counts = path_launches()
-        route = dispatch_route(r.scene, cfg, "auto")
+        route = resolve_route(r.scene, cfg, "auto")
         print(f"[editor] {name}: rebuild_s={ed.last_rebuild_s:.4f} "
               f"tris={r.scene.num_triangles} spheres={r.scene.num_spheres} "
               f"route={route} frame_index={r.frame_index} "
@@ -1959,6 +1964,202 @@ def phase_cli(sm: Smoke):
           f"seconds={sec:.2f} png={'ok' if ok else 'missing'}: "
           f"{proc.stdout.strip()} {proc.stderr.strip()[-300:]}", flush=True)
     sm.check(ok, f"cli render rc={proc.returncode}")
+
+
+def shard_cfg():
+    from rtm_tpu_torch import RenderConfig
+
+    return RenderConfig(width=MAIN_RES, height=MAIN_RES,
+                        max_bounces=MAIN_BOUNCES, draw_environment=True)
+
+
+def phase_shard_band(sm: Smoke, scene, tscene):
+    """render_band in this process, no process group: every rank's band of
+    a 1-, 3- and 4-way split concatenated into the frame and held against
+    the full-frame render_dispatch; each band is one kernel launch (the
+    sweeps: one per bounce), counted from 0 around each split.  mxu on
+    scene 3 bitwise where the band is a multiple of the kernel's 256-slot
+    cull block (world 1 and 4), else >= AGREE_MIN of the pixels; trav and
+    pallas bitwise; the megakernel (512-ray tiles) and wavefront2 (a sort
+    per band) by images_close.  World 3 leaves 2 slots past W*H in the
+    last band."""
+    import torch
+    from rtm_tpu_torch import Camera, render_dispatch
+    from rtm_tpu_torch.ops.kernels.mxu_kernel import BLOCK
+    from rtm_tpu_torch.ops.trace_ref import resolve_route
+    from rtm_tpu_torch.parallel.sharding import (band_size, image_of_bands,
+                                                 render_band)
+
+    cfg = shard_cfg()
+    cam = Camera().spec(cfg.width, cfg.height)
+    grid = f"dragon_grid{TRAV_GRID}"
+    for name, sc, be in (("scene3", scene, "mxu"), (grid, tscene, "trav"),
+                         (grid, tscene, "megakernel"),
+                         (grid, tscene, "wavefront2"),
+                         ("scene3", scene, "pallas")):
+        full = render_dispatch(sc, cam, 1, cfg, backend=be)
+        per_band = 1 if be in ("mxu", "trav", "megakernel") \
+            else cfg.max_bounces
+        for world in SHARD_WORLDS:
+            band = band_size(cfg, world)
+            torch.cuda.synchronize()
+            zero_launches()
+            parts = [render_band(sc, cam, 1, cfg, r, world, be)
+                     for r in range(world)]
+            torch.cuda.synchronize()
+            counts = path_launches()
+            img = image_of_bands(torch.cat(parts), cfg,
+                                 resolve_route(sc, cfg, be))
+            equal = float((img == full).all(dim=-1).float().mean())
+            if be in ("megakernel", "wavefront2"):
+                msg = images_close(img.cpu().numpy(), full.cpu().numpy())
+                rule, ok = "images_close", msg is None
+            elif be == "mxu" and band % BLOCK:
+                rule, ok = f">= {AGREE_MIN} of pixels", equal >= AGREE_MIN
+            else:
+                rule, ok = "bitwise", torch.equal(img, full)
+            print(f"[shard-band] {name} {be} world={world} band={band} "
+                  f"tail_slots={band * world - cfg.num_pixels} "
+                  f"pixels_equal={equal:.6f} max_abs_err="
+                  f"{float((img - full).abs().max()):.3e} ({rule}: "
+                  f"{'ok' if ok else 'FAIL'}) launches={counts}", flush=True)
+            sm.check(ok, f"shard-band {name} {be} world {world}: {rule}")
+            sm.check(counts[be] == world * per_band
+                     and sum(counts.values()) == counts[be],
+                     f"shard-band {name} {be} world {world}: launches "
+                     f"{counts}, expected {world * per_band} of {be}")
+
+
+def shard_refs(scene):
+    """One process's references for the spawned worlds, on the parent's
+    card: the mxu frame and its host ms, and loss_and_grad through mxu
+    replay and wavefront2 (bands=4) against a constant 0.3 target, as
+    run_cases differentiates."""
+    import torch
+    from rtm_tpu_torch import Camera, render_dispatch
+    from rtm_tpu_torch.diff import extract_params, loss_and_grad
+
+    cfg = shard_cfg()
+    cam = Camera().spec(cfg.width, cfg.height)
+    frame = render_dispatch(scene, cam, 1, cfg, backend="mxu")
+
+    def host_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    frame_ms = host_ms(lambda: render_dispatch(scene, cam, 1, cfg,
+                                               backend="mxu"), SHARD_REPS)
+    target = torch.full((cfg.height, cfg.width, 3), 0.3, device=scene.device)
+    grads = {}
+    for route, kw in (("mxu", {}), ("wavefront2", {"bands": 4})):
+        grads[route] = loss_and_grad(extract_params(scene), scene, cam,
+                                     target, 1, cfg, route, False, False,
+                                     **kw)
+    return {"frame": frame, "frame_ms": frame_ms, "grads": grads}
+
+
+def shard_cases(grad_routes):
+    common = dict(scene=3, width=MAIN_RES, height=MAIN_RES,
+                  bounces=MAIN_BOUNCES)
+    return ([dict(name="render", kind="render", backend="mxu",
+                  reps=SHARD_REPS, **common)]
+            + [dict(name=f"grad-{be}", kind="grad", backend=be,
+                    reps=SHARD_REPS if be == "mxu" else 0, **common)
+               for be in grad_routes]
+            + [dict(name="train", kind="train", backend="mxu",
+                    steps=SHARD_TRAIN_STEPS, lr=5e-2, fit="albedo",
+                    **common)])
+
+
+def phase_shard_world(sm: Smoke, tag: str, world: int, backend: str, refs,
+                      grad_routes, card: str):
+    """A spawned world of `world` ranks on the card over `backend` running
+    render_sharded (mxu), sharded_loss_and_grad and make_train_step at the
+    main shape: the frame bitwise the full frame and the same on every
+    rank; the gradients within rtm_tpu's sharding bound of one process's
+    loss_and_grad on the same route, and their least-squares scale
+    within 0.01 of 1 (a double-counted reduction reads `world`); the
+    train steps lower the loss and leave every rank's parameters bitwise
+    equal; each route's kernel launched on every rank."""
+    import numpy as np
+    import torch
+    from rtm_tpu_torch.parallel.smoke import run_cases, spawn_world
+
+    t0 = time.perf_counter()
+    outs = spawn_world(world, run_cases, (shard_cases(grad_routes),),
+                       device="cuda", backend=backend,
+                       timeout_s=SHARD_TIMEOUT_S)
+    print(f"[{tag}] {world} rank(s) over {backend} on one card "
+          f"({card}): spawn to results {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    r0 = outs[0]
+    full = refs["frame"].cpu().numpy()
+    img = r0["render"]["image"]
+    same = len({o["render"]["digest"] for o in outs}) == 1
+    bitwise = bool(np.array_equal(img, full))
+    print(f"[{tag}] render_sharded(mxu) scene3 {MAIN_RES}x{MAIN_RES} "
+          f"{MAIN_BOUNCES} bounces: bitwise the full frame {bitwise}, the "
+          f"same on every rank {same}; ms per sharded frame "
+          f"{[round(o['render']['ms'], 4) for o in outs]} against "
+          f"render_dispatch {refs['frame_ms']:.4f} ({card})", flush=True)
+    sm.check(bitwise and same, f"{tag} frame bitwise {bitwise} same {same}")
+    for route in grad_routes:
+        case = f"grad-{route}"
+        l1, g1 = refs["grads"][route]
+        got = r0[case]
+        worst, ref_v, sh_v = [], [], []
+        for f in g1.fields():
+            b = getattr(g1, f).cpu().numpy()
+            a = got["grads"][f]
+            if not b.size:
+                continue
+            ratio = float((np.abs(a - b) / (SHARD_RTOL * np.abs(b)
+                                             + SHARD_ATOL)).max())
+            worst.append(f"{f}={ratio:.3f}")
+            sm.check(bool(np.isfinite(a).all()) and ratio <= 1.0,
+                     f"{tag} {route} grad {f}: ratio {ratio:.3f}")
+            ref_v.append(b.ravel())
+            sh_v.append(a.ravel())
+        ref_v, sh_v = np.concatenate(ref_v), np.concatenate(sh_v)
+        scale = float(sh_v @ ref_v) / float(ref_v @ ref_v)
+        losses = {o[case]["loss"] for o in outs}
+        rel = abs(got["loss"] - float(l1)) / abs(float(l1))
+        print(f"[{tag}] sharded_loss_and_grad({route}): loss "
+              f"{got['loss']:.8f} against {float(l1):.8f} (rel {rel:.2e}; "
+              f"one value on every rank {len(losses) == 1}); max |diff| / "
+              f"({SHARD_RTOL} |one process| + {SHARD_ATOL}): "
+              + " ".join(worst) + f"; scale {scale:.6f}; launches "
+              f"{got['launches']}", flush=True)
+        sm.check(rel <= 1e-4 and len(losses) == 1,
+                 f"{tag} {route} loss {got['loss']} vs {float(l1)}")
+        sm.check(abs(scale - 1.0) < 0.01, f"{tag} {route} scale {scale}")
+        sm.check(all(o[case]["launches"][route] >= 1 for o in outs),
+                 f"{tag} {route}: the kernel did not launch on every rank")
+        if got.get("allreduce_ms") is not None:
+            print(f"[{tag}] gradient all-reduce: "
+                  f"{got['allreduce_floats']} floats in "
+                  f"{[round(o[case]['allreduce_ms'], 4) for o in outs]} ms "
+                  f"per rank; sharded fwd+bwd "
+                  f"{[round(o[case]['ms'], 2) for o in outs]} ms ({card})",
+                  flush=True)
+    tr = r0["train"]["losses"]
+    same_p = len({o["train"]["digest"] for o in outs}) == 1
+    print(f"[{tag}] make_train_step(mxu, Adam on the albedo) "
+          f"x{SHARD_TRAIN_STEPS}: losses "
+          f"{[round(v, 8) for v in tr]}; parameters bitwise equal on every "
+          f"rank {same_p}", flush=True)
+    sm.check(tr[-1] < tr[0] and same_p,
+             f"{tag} train losses {tr} params equal {same_p}")
+    sm.check(all(o["render"]["launches"]["mxu"] == 1 for o in outs),
+             f"{tag} render launches "
+             f"{[o['render']['launches'] for o in outs]}")
+    peaks = [round(max(v["peak_mib"] for v in o.values()), 1) for o in outs]
+    print(f"[{tag}] peak MiB per rank {peaks} ({card})", flush=True)
 
 
 def main() -> int:
@@ -2178,6 +2379,8 @@ def main() -> int:
     with sm.phase("mega-big-profile"):
         phase_profile(tscene, bcfg, 2, big_ms, tag="mega-big-profile",
                       backend="megakernel")
+    with sm.phase("shard-band"):
+        phase_shard_band(sm, scene, tscene)
         del tscene
     with sm.phase("mega-auto"):
         ascene, acfg, auto_ms = phase_mega_auto(sm)
@@ -2190,6 +2393,12 @@ def main() -> int:
         phase_editor(sm)
     with sm.phase("view"):
         phase_view(sm)
+    with sm.phase("shard-nccl"):
+        refs = shard_refs(scene)
+        phase_shard_world(sm, "shard-nccl", 1, "nccl", refs, ("mxu",), card)
+    with sm.phase("shard-gloo"):
+        phase_shard_world(sm, "shard-gloo", SHARD_GLOO_WORLD, "gloo", refs,
+                          ("mxu", "wavefront2"), card)
 
     record = {"kernels": [{
         "name": "mxu_trace",

@@ -7,7 +7,7 @@ dispatch-slot order (`use_block8`, `slot_to_xy`, `pixel_to_slot`,
 (`MegaPack`, `build_mega_pack`), the megakernel (`mega_trace` over
 csrc/mega_trace.cu, its plain version `mega_trace_plain`, the drivers
 `render_rays_megakernel` / `render_megakernel`, and `megakernel_fits`) and
-the post-pass (`mega_postpass`, `mega_postpass_dense`, `_seg_scan8`,
+the post-pass (`mega_postpass`, `mega_postpass_dense`,
 `mega_postpass_compact`) as torch ops.
 
 The megakernel runs the whole frames x bounces loop per ray: camera ray
@@ -455,25 +455,6 @@ def mega_postpass_dense(color, miss, rec, scene, cfg, n: int):
     return color / float(frames)                          # shader:711
 
 
-def _seg_scan8(first, v3, bounces: int, op: str):
-    """Segmented inclusive Hillis-Steele scan of (L, 3) values, op 'add' or
-    'mul'.  `first` marks segment starts; segments are <= `bounces` long,
-    so ceil(log2(bounces)) masked shift steps complete the scan."""
-    ident = 0.0 if op == "add" else 1.0
-    stop = first
-    d = 1
-    while d < bounces:
-        sh_v = torch.cat([torch.full((d, 3), ident, dtype=v3.dtype,
-                                     device=v3.device), v3[:-d]])
-        sh_f = torch.cat([torch.ones(d, dtype=torch.bool,
-                                     device=stop.device), stop[:-d]])
-        keep = torch.where(stop[:, None], ident, sh_v)
-        v3 = v3 + keep if op == "add" else v3 * keep
-        stop = stop | sh_f
-        d *= 2
-    return v3
-
-
 def mega_postpass_compact(color, miss, rec, scene, cfg, n: int,
                           cap: int | None = None):
     """Compacted texture/sky reconstruction: taps only the significant
@@ -483,15 +464,18 @@ def mega_postpass_compact(color, miss, rec, scene, cfg, n: int,
       2. one `torch.sort` of the ray-major slot ids with a "not
          significant" high bit: the first `cap` sorted keys are the
          compact slot list, grouped by ray with bounces ascending;
-      3. one gather of the 8-field records at those slots, one texture
-         tap per compact slot, and the albedo chain evaluated in compact
-         order with a segmented scan (_seg_scan8);
-      4. per-ray results read back with one n-row gather at the end of
-         each ray's segment.
+      3. one gather of the 8-field records at those slots and one
+         texture tap per compact slot;
+      4. the albedo chain and the sum per ray over its significant
+         records in bounce order, as the dense form runs them (its other
+         records add 0 and multiply by 1, exactly), from one (n, B)
+         gather of each ray's segment.
 
     A frame whose significant count exceeds `cap` (default n) takes the
     dense form instead: a host branch on that count, one `.item()` per
-    frame.  Both branches give the same result up to summation order.
+    frame.  Both branches give the same bits, so a frame does not depend
+    on how its slots were split into dispatches (rtm_tpu's compact form
+    sums by a segmented scan, in another order).
     """
     frames = cfg.max_frames
     bounces = cfg.max_bounces
@@ -534,25 +518,16 @@ def mega_postpass_compact(color, miss, rec, scene, cfg, n: int,
                 torch.where(has_tex, uu, 0.0),
                 torch.where(has_tex, vv, 0.0))                 # (cap, 3)
 
-            htf = has_tex[:, None]
-            f_c = torch.where(htf, tex_c, 1.0)                 # albedo factor
-            # segment starts: first element, or a new ray id.  Invalid tail
-            # slots carry contrib 0 / factor 1 and are never read back.
-            ray_c = perm // bounces
-            first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                               ray_c[1:] != ray_c[:-1]])
-            incl_p = _seg_scan8(first, f_c, bounces, "mul")
-            excl_p = torch.where(
-                first[:, None], 1.0,
-                torch.cat([torch.ones((1, 3), dtype=torch.float32,
-                                      device=dev), incl_p[:-1]]))
-            contrib = crec[:, 0:3] * excl_p * torch.where(htf, tex_c, 1.0)
-            incl_s = _seg_scan8(first, contrib, bounces, "add")
-
-            end_idx = torch.clamp(start + cnt - 1, 0, cap - 1).long()
-            got = (cnt > 0)[:, None]
-            color = color + torch.where(got, incl_s[end_idx], 0.0)
-            pt = torch.where(got, incl_p[end_idx], 1.0)
+            k = torch.arange(bounces, device=dev)
+            seg = k[None, :] < cnt[:, None]                       # (n, B)
+            pos = torch.clamp(start[:, None] + k[None, :], 0, cap - 1).long()
+            s_k = torch.where(seg[..., None], crec[pos, 0:3], 0.0)
+            f_k = torch.where((has_tex[pos] & seg)[..., None], tex_c[pos],
+                              1.0)                                 # albedo
+            pt = torch.ones((n, 3), dtype=torch.float32, device=dev)
+            for b in range(bounces):
+                color = color + s_k[:, b] * pt * f_k[:, b]
+                pt = pt * f_k[:, b]
         color = _add_sky(color, miss, f, n, scene, cfg, pt)
 
     return color / float(frames)                          # shader:711

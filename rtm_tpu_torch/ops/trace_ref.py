@@ -493,6 +493,37 @@ _BACKENDS = ("auto", "mxu", "trav", "megakernel", "wavefront2", "xla",
              "pallas")
 
 
+def resolve_route(scene, cfg: RenderConfig, backend: str) -> str:
+    """The route a dispatch of `backend` takes on this scene: 'auto'
+    resolved by auto_backend on the scene's device, then the table-limit
+    fallbacks mxu -> trav -> megakernel -> wavefront2 (the last, loudly,
+    when the dispatch does not fit the device: megakernel_fits).  The
+    fused and wavefront routes fall to 'xla' for the max_bounces == 1
+    flat-shade preview.  Raises ValueError on an unknown backend."""
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "auto":
+        backend = auto_backend(scene, scene.device.type)
+    if cfg.max_bounces <= 1:
+        return backend if backend in ("xla", "pallas") else "xla"
+    if backend == "mxu" and not (scene.mxu_meta is not None
+                                 and scene.mxu_meta.supported):
+        backend = "trav"
+    if backend == "trav" and not (scene.trav_meta is not None
+                                  and scene.trav_meta.supported):
+        backend = "megakernel"
+    if backend == "megakernel":
+        from .kernels.megakernel import megakernel_fits
+        if not megakernel_fits(scene, cfg):
+            warnings.warn(
+                f"the megakernel's tables and outputs for a {cfg.width}x"
+                f"{cfg.height} dispatch of {scene.num_triangles} triangles "
+                f"do not fit the device; falling back to wavefront2",
+                stacklevel=3)
+            backend = "wavefront2"
+    return backend
+
+
 def render_dispatch(scene, cam, frame_index: int, cfg: RenderConfig,
                     backend: str = "auto", chunk: int = 512,
                     remat: bool = False):
@@ -510,38 +541,19 @@ def render_dispatch(scene, cam, frame_index: int, cfg: RenderConfig,
     max_bounces == 1 flat-shade preview.
     Returns (H, W, 3) f32 radiance averaged over cfg.max_frames samples,
     on the scene's device."""
-    if backend not in _BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}")
-    if backend == "auto":
-        backend = auto_backend(scene, scene.device.type)
-    multi = cfg.max_bounces > 1
-    if backend == "mxu" and multi:
-        mm = scene.mxu_meta
-        if mm is not None and mm.supported:
-            from .kernels.mxu_kernel import render_mxu
-            return render_mxu(scene, cam, frame_index, cfg)
-        backend = "trav"                          # table-limit fallback
-    if backend == "trav" and multi:
-        tm = scene.trav_meta
-        if tm is not None and tm.supported:
-            from .kernels.trav_kernel import render_trav
-            return render_trav(scene, cam, frame_index, cfg)
-        backend = "megakernel"                    # table-limit fallback
-    if backend == "megakernel" and multi:
-        from .kernels.megakernel import megakernel_fits, render_megakernel
-        if megakernel_fits(scene, cfg):
-            return render_megakernel(scene, cam, frame_index, cfg)
-        warnings.warn(
-            f"render_dispatch: the megakernel's tables and outputs for a "
-            f"{cfg.width}x{cfg.height} dispatch of {scene.num_triangles} "
-            f"triangles do not fit the device; falling back to wavefront2",
-            stacklevel=2)
-        backend = "wavefront2"
-    if backend == "wavefront2" and multi:
+    backend = resolve_route(scene, cfg, backend)
+    if backend == "mxu":
+        from .kernels.mxu_kernel import render_mxu
+        return render_mxu(scene, cam, frame_index, cfg)
+    if backend == "trav":
+        from .kernels.trav_kernel import render_trav
+        return render_trav(scene, cam, frame_index, cfg)
+    if backend == "megakernel":
+        from .kernels.megakernel import render_megakernel
+        return render_megakernel(scene, cam, frame_index, cfg)
+    if backend == "wavefront2":
         from .wavefront2 import render_wavefront2
         return render_wavefront2(scene, cam, frame_index, cfg)
-    if backend not in ("xla", "pallas"):
-        backend = "xla"                       # flat-shade preview fallback
     x, y = pixel_grid(cfg.width, cfg.height, scene.device)
     incoming = render_pixels(scene, cam, x, y, frame_index, cfg, chunk,
                              backend, remat)

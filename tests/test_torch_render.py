@@ -283,7 +283,11 @@ def test_port_never_imports_jax():
             "rtm_tpu_torch/runtime/events.py",
             "rtm_tpu_torch/runtime/frame.py",
             "rtm_tpu_torch/bench/profile.py",
-            "rtm_tpu_torch/viewer/server.py"} <= names
+            "rtm_tpu_torch/viewer/server.py",
+            "rtm_tpu_torch/parallel/distributed.py",
+            "rtm_tpu_torch/parallel/sharding.py",
+            "rtm_tpu_torch/parallel/smoke.py",
+            "rtm_tpu_torch/bench/scaling.py"} <= names
     banned = ("jax", "jaxlib", "ml_dtypes", "rtm_tpu")
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imported_modules(f)
