@@ -1966,6 +1966,259 @@ def phase_cli(sm: Smoke):
     sm.check(ok, f"cli render rc={proc.returncode}")
 
 
+BENCH_TIMEOUT_S = 600
+CAMERA_BLOCKS, CAMERA_REPEATS = 5, 20
+CAMERA_PROFILE_FRAMES = 20
+
+
+@contextmanager
+def bench_env(**knobs):
+    """The drivers' RTM_BENCH_* knobs set for the block, restored after;
+    RTM_BENCH_OUT is unset, so no driver writes a file."""
+    import os
+
+    keys = set(knobs) | {"RTM_BENCH_OUT"}
+    old = {k: os.environ.get(k) for k in keys}
+    os.environ.pop("RTM_BENCH_OUT", None)
+    os.environ.update({k: str(v) for k, v in knobs.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def driver_rows(sm: Smoke, tag: str, main, argv, **knobs):
+    """Run a driver's main(argv) in this process (so its kernel launches
+    are counted here) with every launch count set to 0 just before and
+    read just after; its stdout rows are printed under `tag`.  Returns
+    (rows, launches)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with bench_env(**knobs):
+        zero_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        launches = path_launches()
+    rows = [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.startswith("{")]
+    for row in rows:
+        print(f"[{tag}] {json.dumps(row)}", flush=True)
+    print(f"[{tag}] rc={rc} launches={launches}", flush=True)
+    sm.check(rc == 0 and rows, f"{tag} rc={rc} rows={len(rows)}")
+    return rows, launches
+
+
+def phase_bench(sm: Smoke, main_ms: float):
+    """`python -m rtm_tpu_torch bench` at its defaults (bench.py's
+    headline: scene 3, 512x512, 8 bounces, 5 blocks x 20 frames), in a
+    subprocess as a user runs it: exit 0, exactly one JSON line on stdout
+    with bench.py's keys plus device, backend and setup_s, the route mxu,
+    the device this card; its stderr line's launches: one mxu launch per
+    timed frame and no other kernel."""
+    import ast
+    import re
+
+    import torch
+
+    cmd = [sys.executable, "-m", "rtm_tpu_torch", "bench"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    sec = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    print(f"[bench] {' '.join(cmd[1:])}: rc={proc.returncode} "
+          f"seconds={sec:.2f} stdout_lines={len(lines)}", flush=True)
+    for line in proc.stderr.strip().splitlines()[-3:]:
+        print(f"[bench] stderr: {line}", flush=True)
+    sm.check(proc.returncode == 0 and len(lines) == 1,
+             f"bench rc={proc.returncode} stdout lines={len(lines)}")
+    if proc.returncode != 0 or len(lines) != 1:
+        return
+    line = json.loads(lines[0])
+    keys = {"metric", "value", "unit", "vs_baseline", "spread", "device",
+            "backend", "setup_s"}
+    spread = line.get("spread", {})
+    ms = re.search(r"median ms/frame=([0-9.]+)", proc.stderr)
+    launches = re.search(r"launches=(\{[^}]*\})", proc.stderr)
+    launches = ast.literal_eval(launches.group(1)) if launches else {}
+    n_timed = spread.get("blocks", 0) * spread.get("repeats_per_block", 0)
+    print(f"[bench] {lines[0]}", flush=True)
+    print(f"[bench] bench ms/frame={ms.group(1) if ms else 'missing'} "
+          f"(median block, render_dispatch, spec on the card) beside "
+          f"[main] ms/frame={main_ms:.4f} (render_progressive); "
+          f"launches={launches}", flush=True)
+    sm.check(keys <= set(line) and set(spread) == {
+        "min", "max", "blocks", "repeats_per_block"},
+        f"bench keys {sorted(line)}")
+    sm.check(line.get("metric") == "cornell_grays_per_s"
+             and line.get("unit") == "Grays/s/chip"
+             and (spread.get("blocks"), spread.get("repeats_per_block"))
+             == (5, 20), f"bench metric/unit/spread {line}")
+    sm.check(line.get("backend") == "mxu",
+             f"bench route {line.get('backend')}, not mxu")
+    dev = line.get("device", {})
+    sm.check(dev.get("platform") == "gpu"
+             and dev.get("kind") == torch.cuda.get_device_name(0),
+             f"bench device {dev}")
+    sm.check(launches.get("mxu") == n_timed
+             and sum(launches.values()) == n_timed,
+             f"bench launches {launches} != {n_timed} mxu")
+    sm.check(line.get("value", 0.0) > 0.0, f"bench value {line.get('value')}")
+
+
+def camera_profile(scene, spec, cfg, tag: str, ref_ms: float):
+    """One profiled window of CAMERA_PROFILE_FRAMES mxu dispatches with
+    `spec`: host<->device copies and stream synchronisations per frame
+    (runtime calls on the host, copies on the device), then
+    report_profile's device busy time and idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtm_tpu_torch.bench.protocol import dispatcher, finish
+
+    n = CAMERA_PROFILE_FRAMES
+    dispatch = dispatcher(scene, spec, cfg, "mxu")
+    finish(dispatch(1))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for fi in range(2, 2 + n):
+            dispatch(fi)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    names = [(e.name, e.device_type) for e in prof.events()]
+    syncs = sum(1 for nm, _ in names if nm == "cudaStreamSynchronize")
+    htod = sum(1 for nm, dt in names
+               if dt == DeviceType.CUDA and "HtoD" in nm)
+    dtoh = sum(1 for nm, dt in names
+               if dt == DeviceType.CUDA and "DtoH" in nm)
+    print(f"[{tag}] per frame over {n} profiled frames: "
+          f"cudaStreamSynchronize={syncs / n:.2f} memcpy_HtoD={htod / n:.2f} "
+          f"memcpy_DtoH={dtoh / n:.2f}", flush=True)
+    report_profile(prof, tag, n, wall_ms, ref_ms)
+    return syncs / n, htod / n
+
+
+def phase_bench_camera(sm: Smoke, scene):
+    """The per-frame camera copy: render_dispatch(mxu) on scene 3 at the
+    main path's shape with the camera spec on the CPU (Camera.spec's
+    default, as the port's callers build it) against the spec on the card
+    (as the bench drivers build it).  Frames 1 and 2 bitwise equal; then
+    protocol.timed_blocks of CAMERA_BLOCKS x CAMERA_REPEATS frames in turns
+    CPU, card, card, CPU; the medians; and from one profiled window each,
+    stream synchronisations and host-to-device copies per frame."""
+    import torch
+    from rtm_tpu_torch import Camera, RenderConfig
+    from rtm_tpu_torch.bench.protocol import (dispatcher, finish,
+                                              median_spread, timed_blocks)
+
+    cfg = RenderConfig(width=MAIN_RES, height=MAIN_RES,
+                       max_bounces=MAIN_BOUNCES, max_frames=1,
+                       draw_environment=True, accumulate=True)
+    specs = {"cpu": Camera().spec(cfg.width, cfg.height),
+             "card": Camera().spec(cfg.width, cfg.height,
+                                   device=scene.device)}
+    dispatch = {w: dispatcher(scene, spec, cfg, "mxu")
+                for w, spec in specs.items()}
+    same = all(torch.equal(dispatch["cpu"](fi), dispatch["card"](fi))
+               for fi in (1, 2))
+    sm.check(same, "bench-camera frames differ with the spec's device")
+    zero_launches()
+    ms = {"cpu": [], "card": []}
+    for where in ("cpu", "card", "card", "cpu"):
+        finish(dispatch[where](1))
+        dts = timed_blocks(dispatch[where], CAMERA_BLOCKS, CAMERA_REPEATS,
+                           first_frame=2)
+        turn = [dt / CAMERA_REPEATS * 1e3 for dt in dts]
+        ms[where] += turn
+        med, lo, hi = median_spread(turn)
+        print(f"[bench-camera] turn spec_on={where}: ms/frame median "
+              f"{med:.4f} (min {lo:.4f} / max {hi:.4f})", flush=True)
+    launches = path_launches()
+    n = 4 * (1 + CAMERA_BLOCKS * CAMERA_REPEATS)
+    sm.check(launches["mxu"] == n and sum(launches.values()) == n,
+             f"bench-camera launches {launches} != {n} mxu")
+    med = {w: median_spread(v) for w, v in ms.items()}
+    print(f"[bench-camera] scene3 {cfg.width}x{cfg.height} "
+          f"{cfg.max_bounces} bounces mxu, {2 * CAMERA_BLOCKS} blocks x "
+          f"{CAMERA_REPEATS} frames each: spec on the CPU "
+          f"{med['cpu'][0]:.4f} ms/frame (min {med['cpu'][1]:.4f} / max "
+          f"{med['cpu'][2]:.4f}), spec on the card {med['card'][0]:.4f} "
+          f"(min {med['card'][1]:.4f} / max {med['card'][2]:.4f}); "
+          f"frames bitwise equal={same}; launches={launches}", flush=True)
+    for where in ("cpu", "card"):
+        camera_profile(scene, specs[where], cfg,
+                       f"bench-camera-profile-{where}", med[where][0])
+
+
+def phase_bench_backends(sm: Smoke):
+    """bench/backends.py at its default routes (mxu, megakernel, trav,
+    wavefront2) on scene 3, 512x512, 8 bounces, 3 blocks x 5 frames each:
+    every route as asked, each fused kernel launched once per frame and
+    the cluster sweep once per bounce."""
+    from rtm_tpu_torch.bench import backends
+
+    blocks, repeats = 3, 5
+    rows, launches = driver_rows(sm, "bench-backends", backends.main, [],
+                                 RTM_BENCH_BLOCKS=blocks,
+                                 RTM_BENCH_REPEATS=repeats)
+    frames = 1 + max(2, repeats // 2) + blocks * repeats
+    want = {"mxu": frames, "megakernel": frames, "trav": frames,
+            "wavefront2": frames * MAIN_BOUNCES, "pallas": 0}
+    sm.check(launches == want, f"bench-backends launches {launches} != "
+             f"{want}")
+    sm.check([(r["backend"], r["route"]) for r in rows] == [
+        (b, b) for b in backends.DEFAULT_BACKENDS],
+        f"bench-backends routes {[r.get('route') for r in rows]}")
+
+
+def phase_bench_grad(sm: Smoke):
+    """bench/grad.py at 512x512, 8 bounces through mxu (record replay) and
+    wavefront2 (8 bands, remat): the three rows each, finite losses, and
+    only the route's kernel launched."""
+    import math
+
+    from rtm_tpu_torch.bench import grad
+
+    for backend, kernel in (("mxu", "mxu"), ("wavefront2", "wavefront2")):
+        rows, launches = driver_rows(
+            sm, "bench-grad", grad.main, [str(MAIN_RES), str(MAIN_BOUNCES)],
+            RTM_BENCH_BACKEND=backend)
+        sm.check(len(rows) == 3 and all(math.isfinite(r.get("loss", 0.0))
+                                        for r in rows),
+                 f"bench-grad {backend} rows {rows}")
+        sm.check(launches[kernel] > 0
+                 and sum(launches.values()) == launches[kernel],
+                 f"bench-grad {backend} launches {launches}")
+
+
+def phase_bench_bigscene(sm: Smoke):
+    """bench/bigscene.py at its defaults (256x256, 4 bounces) on the three
+    sizes: trav on each, then the megakernel where it fits (wavefront2
+    where not); both routes' kernels launched."""
+    from rtm_tpu_torch.bench import bigscene
+
+    rows, launches = driver_rows(sm, "bench-bigscene", bigscene.main, [])
+    sm.check(len(rows) == len(bigscene.TRIANGLE_TARGETS),
+             f"bench-bigscene rows {len(rows)}")
+    for r in rows:
+        second = "megakernel" if r["megakernel_fits"] else "wavefront2"
+        sm.check(r["trav_supported"] and "trav_ms" in r
+                 and f"{second}_ms" in r and r["live_ray_bounces"] > 0,
+                 f"bench-bigscene row {r['grid']}")
+        sm.check(launches[second] > 0, f"bench-bigscene {second} launches "
+                 f"{launches}")
+    sm.check(launches["trav"] > 0, f"bench-bigscene trav launches "
+             f"{launches}")
+
+
 def shard_cfg():
     from rtm_tpu_torch import RenderConfig
 
@@ -2393,6 +2646,16 @@ def main() -> int:
         phase_editor(sm)
     with sm.phase("view"):
         phase_view(sm)
+    with sm.phase("bench"):
+        phase_bench(sm, frame_ms)
+    with sm.phase("bench-camera"):
+        phase_bench_camera(sm, scene)
+    with sm.phase("bench-backends"):
+        phase_bench_backends(sm)
+    with sm.phase("bench-grad"):
+        phase_bench_grad(sm)
+    with sm.phase("bench-bigscene"):
+        phase_bench_bigscene(sm)
     with sm.phase("shard-nccl"):
         refs = shard_refs(scene)
         phase_shard_world(sm, "shard-nccl", 1, "nccl", refs, ("mxu",), card)

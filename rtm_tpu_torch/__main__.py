@@ -11,21 +11,16 @@ framework is headless-first, so the entry point is a CLI (SURVEY C1):
   save-scene  export a built-in scene to the .rtm.json format
   optimize    inverse-rendering demo (Adam on scene params vs a target)
   view        browser viewer: progressive render + scene editor over HTTP
+  bench       headline throughput, one JSON line (bench/headline.py)
 
 Commands run on the card; `--device cpu` asks for the CPU, where the
 kernels' plain versions run.  Without a CUDA device and without
-`--device cpu` a command exits non-zero with a message.  `bench` is not
-ported: it exits non-zero naming its ROADMAP.md item.
+`--device cpu` a command exits non-zero with a message.
 """
 from __future__ import annotations
 
 import argparse
 import sys
-
-_NOT_PORTED = {
-    "bench": "the headline benchmark is the JAX package's bench.py; the "
-             "port's benchmark entry is ROADMAP.md queue 1 item 13",
-}
 
 
 def _add_render_args(p):
@@ -253,10 +248,15 @@ def cmd_optimize(args) -> int:
     return 0
 
 
-def _not_ported(args) -> int:
-    print(f"rtm_tpu_torch {args.command}: {_NOT_PORTED[args.command]}",
-          file=sys.stderr)
-    return 2
+def cmd_bench(args) -> int:
+    """bench.py's headline on the port: one JSON line on stdout, its
+    knobs in RTM_BENCH_* environment variables (bench/headline.py)."""
+    import json
+
+    from rtm_tpu_torch.bench.headline import run
+
+    print(json.dumps(run(_device(args))), flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -270,8 +270,10 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="render.png")
     p.set_defaults(fn=cmd_render)
 
-    p = sub.add_parser("bench", help="not ported (ROADMAP.md item 13)")
-    p.set_defaults(fn=_not_ported)
+    p = sub.add_parser("bench", help="headline throughput (one JSON line)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="the card (default), or the CPU when asked")
+    p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("measure", help="orbit perf sweep -> Measure.txt")
     _add_render_args(p)

@@ -74,14 +74,15 @@ def test_cli_render_debug_heatmap(tmp_path):
 
 def test_cli_needs_the_card_unless_asked(tmp_path, capsys, monkeypatch):
     """No silent CPU fallback: without a card and without --device cpu the
-    command exits non-zero with a message (view too, before it serves);
-    bench names its ROADMAP item."""
+    command exits non-zero with a message (view and bench too, before
+    they serve or measure)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = tmp_path / "r.png"
     assert t_cli(RENDER + ["--out", str(out)]) == 2
     assert "--device cpu" in capsys.readouterr().err and not out.exists()
     assert t_cli(["bench"]) == 2
-    assert "item 13" in capsys.readouterr().err
+    cap = capsys.readouterr()
+    assert "--device cpu" in cap.err and cap.out == ""
     assert t_cli(["view", "--port", "0"]) == 2
     assert "--device cpu" in capsys.readouterr().err
 

@@ -287,7 +287,12 @@ def test_port_never_imports_jax():
             "rtm_tpu_torch/parallel/distributed.py",
             "rtm_tpu_torch/parallel/sharding.py",
             "rtm_tpu_torch/parallel/smoke.py",
-            "rtm_tpu_torch/bench/scaling.py"} <= names
+            "rtm_tpu_torch/bench/scaling.py",
+            "rtm_tpu_torch/bench/protocol.py",
+            "rtm_tpu_torch/bench/headline.py",
+            "rtm_tpu_torch/bench/backends.py",
+            "rtm_tpu_torch/bench/grad.py",
+            "rtm_tpu_torch/bench/bigscene.py"} <= names
     banned = ("jax", "jaxlib", "ml_dtypes", "rtm_tpu")
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imported_modules(f)
