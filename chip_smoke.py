@@ -129,6 +129,27 @@ Phases (each prints lines starting with its tag, and its seconds):
             per tile-bounce, the plain version's time, agreement and bound,
             frame 1 against the wavefront2 path's by images_close;
             [mega-auto-profile]
+  [host-waits] no steady-state frame of the fused routes makes the host
+            wait: render_progressive at 512x512, 8 bounces on scene 3
+            (mxu), dragon_grid(10) (mxu), scene 3 (megakernel), the
+            textured dragon_grid(16) (auto -> megakernel) and
+            dragon_grid(56) (auto -> trav), and
+            ProgressiveRenderer.step_async on scene 3 with the camera moved
+            before each frame: 5 warm frames, then 10 under
+            torch.cuda.set_sync_debug_mode("error"), which must raise
+            nothing (ms/frame by CUDA events); the same 10 profiled: per
+            frame 0 cudaStreamSynchronize, 0 pageable host-to-device and 0
+            device-to-host copies, device busy ms and the idle share; each
+            frame bitwise equal to the frame rendered with a CPU spec (the
+            post-pass is the dense form in both); then the waits per frame
+            of the routes left open (wavefront2, pallas, xla, xla with
+            --check-nans' checks), reported
+  [postpass-forms] the post-pass's forms (dense; compact at the static
+            capacity n * bounces; compact at n with the dense form and a
+            choice on the device) on 10 frames' records of scene 3 (mxu)
+            and the textured dragon_grid(16) (megakernel): device ms/frame
+            by CUDA-graph replay and eager, the frames whose significant
+            records exceed n, every form bitwise equal to the dense one
   [shard-band] render_band in one process, no process group: the bands of
             a 1-, 3- and 4-way split against render_dispatch at 512x512,
             8 bounces: scene 3 on mxu (bitwise at 1 and 4 ranks, whose
@@ -326,7 +347,8 @@ def mxu_bound(scene, cfg, n: int):
 
     ma, mm = scene.mxu_arrays, scene.mxu_meta
     tabs = side_tables(scene)
-    camf = _pack_camera(Camera().spec(cfg.width, cfg.height), scene.device)
+    camf = _pack_camera(Camera().spec(cfg.width, cfg.height,
+                                      device=scene.device))
     stats = mxu_trace_plain(scene, tabs, camf, 1, 0, n, cfg,
                             with_stats=True)[4]
     in_bytes = 64 * 4 + sum(t.numel() * t.element_size() for t in (
@@ -408,7 +430,8 @@ def phase_compare(sm: Smoke, scenes):
             cfg = RenderConfig(width=res, height=res,
                                max_bounces=COMPARE_BOUNCES,
                                max_frames=frames, draw_environment=True)
-            camf = _pack_camera(Camera().spec(res, res), scene.device)
+            camf = _pack_camera(Camera().spec(res, res,
+                                              device=scene.device))
             k = mxu_trace(scene, tabs, camf, fi, 0, n, cfg,
                           return_hitrec=True)
             p = mxu_trace_plain(scene, tabs, camf, fi, 0, n, cfg,
@@ -508,7 +531,8 @@ def phase_trav_compare(sm: Smoke, scenes):
             cfg = RenderConfig(width=res, height=res,
                                max_bounces=COMPARE_BOUNCES,
                                max_frames=frames, draw_environment=True)
-            camf = _pack_camera(Camera().spec(res, res), scene.device)
+            camf = _pack_camera(Camera().spec(res, res,
+                                              device=scene.device))
             k = trav_trace(scene, tabs, camf, fi, 0, n, cfg,
                            with_stats=True)
             p = trav_trace_plain(scene, tabs, camf, fi, 0, n, cfg,
@@ -532,7 +556,8 @@ def trav_kernel_and_postpass_ms(scene, cfg, reps: int):
                                                        trav_trace)
 
     n = cfg.width * cfg.height
-    camf = _pack_camera(Camera().spec(cfg.width, cfg.height), scene.device)
+    camf = _pack_camera(Camera().spec(cfg.width, cfg.height,
+                                      device=scene.device))
     tabs = trav_side_tables(scene)
     k_ms = cuda_ms(lambda: trav_trace(scene, tabs, camf, 1, 0, n, cfg), reps)
     one = dataclasses.replace(cfg, max_bounces=1)
@@ -598,7 +623,7 @@ def drive(sm: Smoke, tag: str, scene, build_s: float, frames_warm: int,
     cfg = RenderConfig(width=MAIN_RES, height=MAIN_RES,
                        max_bounces=MAIN_BOUNCES, max_frames=1,
                        draw_environment=True, accumulate=True)
-    cam = Camera().spec(cfg.width, cfg.height)
+    cam = Camera().spec(cfg.width, cfg.height, device=scene.device)
     resolved = resolve_route(scene, cfg, backend)
     sm.check(scene.device.type == "cuda", f"{tag} scene not on the card")
     sm.check(resolved == backend_expected,
@@ -654,7 +679,8 @@ def kernel_and_postpass_ms(scene, cfg, reps: int):
     from rtm_tpu_torch.ops.kernels.mxu_kernel import mxu_trace, side_tables
 
     n = cfg.width * cfg.height
-    camf = _pack_camera(Camera().spec(cfg.width, cfg.height), scene.device)
+    camf = _pack_camera(Camera().spec(cfg.width, cfg.height,
+                                      device=scene.device))
     tabs = side_tables(scene)
     k_ms = cuda_ms(lambda: mxu_trace(scene, tabs, camf, 1, 0, n, cfg), reps)
     color, miss, rec, _ = mxu_trace(scene, tabs, camf, 1, 0, n, cfg)
@@ -672,7 +698,7 @@ def phase_profile(scene, cfg, frames: int, frame_ms: float,
 
     from rtm_tpu_torch import Camera, render_progressive
 
-    cam = Camera().spec(cfg.width, cfg.height)
+    cam = Camera().spec(cfg.width, cfg.height, device=scene.device)
     render_progressive(scene, cam, cfg, 1, backend=backend)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -682,6 +708,85 @@ def phase_profile(scene, cfg, frames: int, frame_ms: float,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     report_profile(prof, tag, frames, wall_ms, frame_ms)
+
+
+# the span profile_window marks around the frames; the profiler also
+# records it on the device's timeline, as one event over the whole span
+WAIT_WINDOW = "host_wait_window"
+
+
+def device_events(prof):
+    """(start us, end us, name) of the profiler's device events, by start
+    (not the device-side copy of the WAIT_WINDOW annotation)."""
+    from torch.autograd import DeviceType
+
+    return sorted(((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.name != WAIT_WINDOW), key=lambda x: x[0])
+
+
+def busy_us_of(dev) -> float:
+    """The union of the device events' intervals, in us."""
+    if not dev:
+        return 0.0
+    busy_us, cur_s, cur_e = 0.0, dev[0][0], dev[0][1]
+    for s, e, _ in dev[1:]:
+        if s > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s = s
+        cur_e = max(cur_e, e)
+    return busy_us + cur_e - cur_s
+
+
+_HOST_SYNCS = ("cudaStreamSynchronize", "cudaEventSynchronize",
+               "cudaDeviceSynchronize")
+
+
+def profile_window(frames):
+    """torch.profiler over frames() marked as one WAIT_WINDOW span, then
+    one synchronise (outside the span); returns the profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(WAIT_WINDOW):
+            frames()
+        torch.cuda.synchronize()
+    return prof
+
+
+def host_wait_counts(prof, n: int) -> dict:
+    """Per frame over a profile_window of n frames: the host's stream,
+    event and device synchronisations inside the window (the closing
+    synchronise and the profiler's own fall outside it), the device's
+    host-to-device copies from pageable and from pinned memory and its
+    device-to-host copies, and the device's busy ms and launches."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    spans = [e.time_range for e in events
+             if e.name == WAIT_WINDOW and e.device_type == DeviceType.CPU]
+    counts = dict.fromkeys(_HOST_SYNCS + ("HtoD_pageable", "HtoD_pinned",
+                                          "DtoH"), 0)
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name != WAIT_WINDOW:
+            if "HtoD" in e.name:
+                key = "HtoD_pinned" if "Pinned" in e.name else \
+                    "HtoD_pageable"
+                counts[key] += 1
+            elif "DtoH" in e.name:
+                counts["DtoH"] += 1
+        elif e.name in _HOST_SYNCS and any(
+                s.start <= e.time_range.start <= s.end for s in spans):
+            counts[e.name] += 1
+    dev = device_events(prof)
+    out = {k: v / n for k, v in counts.items()}
+    out["device_busy_ms"] = busy_us_of(dev) / 1e3 / n
+    out["device_launches"] = len(dev) / n
+    out["window_found"] = len(spans) == 1
+    return out
 
 
 def report_profile(prof, tag: str, n: int, wall_ms: float, ref_ms: float,
@@ -694,20 +799,12 @@ def report_profile(prof, tag: str, n: int, wall_ms: float, ref_ms: float,
     PyTorch ops (with their input shapes) that launched them."""
     from torch.autograd import DeviceType
 
-    dev = sorted(((e.time_range.start, e.time_range.end, e.name)
-                  for e in prof.events() if e.device_type == DeviceType.CUDA),
-                 key=lambda x: x[0])
+    dev = device_events(prof)
     if not dev:
         print(f"[{tag}] device time not measured: the profiler saw no "
               "device events", flush=True)
         return
-    busy_us, cur_s, cur_e = 0.0, dev[0][0], dev[0][1]
-    for s, e, _ in dev[1:]:
-        if s > cur_e:
-            busy_us += cur_e - cur_s
-            cur_s = s
-        cur_e = max(cur_e, e)
-    busy_us += cur_e - cur_s
+    busy_us = busy_us_of(dev)
     by_name: dict[str, list] = {}
     for s, e, name in dev:
         acc = by_name.setdefault(name, [0.0, 0])
@@ -764,8 +861,9 @@ def record_bands(scene, res: int, bounces: int, sort_from: int = 99):
 
     cfg = RenderConfig(width=res, height=res, max_bounces=bounces,
                        draw_environment=True)
+    spec = Camera().spec(res, res, device=scene.device)
     with torch.no_grad(), recording(wf2, "sweep_call") as calls:
-        wf2.render_rays_wavefront2(scene, Camera().spec(res, res), 1, cfg,
+        wf2.render_rays_wavefront2(scene, spec, 1, cfg,
                                    pixel_offset=0, n_rays=res * res,
                                    sort_from=sort_from)
     return [c[1] for c in calls]
@@ -1066,7 +1164,7 @@ def phase_wf2_vs_xla(sm: Smoke, scene):
     res = COMPARE_RES
     cfg = RenderConfig(width=res, height=res, max_bounces=MAIN_BOUNCES,
                        draw_environment=True)
-    cam = Camera().spec(res, res)
+    cam = Camera().spec(res, res, device=scene.device)
     with torch.no_grad():
         wf = render_dispatch(scene, cam, 1, cfg, backend="wavefront2")
         ref = render_dispatch(scene, cam, 1, cfg, backend="xla")
@@ -1097,7 +1195,8 @@ def phase_pallas(sm: Smoke, scene, build_s: float, big):
                                  backend="pallas")
     x, y = pixel_grid(cfg.width, cfg.height, scene.device)
     with torch.no_grad(), recording(ik, "nearest_triangle_pallas") as calls:
-        render_pixels(scene, Camera().spec(cfg.width, cfg.height), x, y, 1,
+        render_pixels(scene, Camera().spec(cfg.width, cfg.height,
+                                           device=scene.device), x, y, 1,
                       cfg, backend="pallas")
     feats, boxes, nc = intersect_tables(scene)
     packed = [ik.pack_rays(c[0], c[1]) for c in calls]
@@ -1153,8 +1252,8 @@ def phase_pallas(sm: Smoke, scene, build_s: float, big):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
-            img = render_dispatch(big, Camera().spec(res, res), 1, bcfg,
-                                  backend="pallas")
+            img = render_dispatch(big, Camera().spec(
+                res, res, device=big.device), 1, bcfg, backend="pallas")
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         if res == 128:
@@ -1202,7 +1301,7 @@ def grad_parity(sm: Smoke, name: str, scene, checks: dict,
     res = GRAD_RES
     cfg = RenderConfig(width=res, height=res, max_bounces=MAIN_BOUNCES,
                        draw_environment=True)
-    cam = Camera().spec(res, res)
+    cam = Camera().spec(res, res, device=scene.device)
     target = torch.zeros((res, res, 3), device=scene.device)
     _, g_ref = loss_and_grad(params, scene, cam, target, 1, cfg,
                              backend="xla", remat=False, **(ref_kw or {}))
@@ -1250,7 +1349,7 @@ def phase_grad(sm: Smoke, scene, target_full):
     routes = (("mxu", {}), ("wavefront2", {"bands": 4}))
     cfg = RenderConfig(width=MAIN_RES, height=MAIN_RES,
                        max_bounces=MAIN_BOUNCES, draw_environment=True)
-    cam = Camera().spec(MAIN_RES, MAIN_RES)
+    cam = Camera().spec(MAIN_RES, MAIN_RES, device=scene.device)
     for route, kw in routes:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1289,7 +1388,7 @@ def phase_inverse(sm: Smoke, scene):
 
     cfg = RenderConfig(width=MAIN_RES, height=MAIN_RES,
                        max_bounces=MAIN_BOUNCES, draw_environment=True)
-    cam = Camera().spec(MAIN_RES, MAIN_RES)
+    cam = Camera().spec(MAIN_RES, MAIN_RES, device=scene.device)
     true = extract_params(scene)
     with torch.no_grad():
         target = render_dispatch(scene, cam, 1, cfg, backend="mxu")
@@ -1407,7 +1506,8 @@ def mega_pair(scene, cfg, order: str = "static", cull: bool = True):
 
     n = cfg.width * cfg.height
     pack = build_mega_pack(scene)
-    camf = _pack_camera(Camera().spec(cfg.width, cfg.height), scene.device)
+    camf = _pack_camera(Camera().spec(cfg.width, cfg.height,
+                                      device=scene.device))
     k = mega_trace(scene, pack, camf, 1, 0, n, cfg, cull=cull, order=order,
                    with_stats=True)
     start = torch.cuda.Event(enable_timing=True)
@@ -1446,7 +1546,7 @@ def frame1_vs(sm: Smoke, tag: str, scene, cfg, other: str):
     import torch
     from rtm_tpu_torch import Camera, render_dispatch
 
-    cam = Camera().spec(cfg.width, cfg.height)
+    cam = Camera().spec(cfg.width, cfg.height, device=scene.device)
     with torch.no_grad():
         a = render_dispatch(scene, cam, 1, cfg, backend="megakernel")
         b = render_dispatch(scene, cam, 1, cfg, backend=other)
@@ -1619,7 +1719,8 @@ def phase_bvh_traverse(sm: Smoke):
     arrays = BvhArrays.from_scene(bs)
     cfg = RenderConfig(width=res, height=res)
     x, y = pixel_grid(res, res, arrays.box_min.device)
-    o, d, _ = camera_rays(Camera().spec(res, res), cfg, x, y, 1, 1)
+    o, d, _ = camera_rays(Camera().spec(res, res, device=x.device), cfg, x,
+                          y, 1, 1)
     k = max(st.leaf_tris_max for st in bs.stats)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1680,7 +1781,7 @@ def phase_soft(sm: Smoke, scene, target_full):
     params = extract_params(scene)
     cfg = RenderConfig(width=MAIN_RES, height=MAIN_RES,
                        max_bounces=MAIN_BOUNCES, draw_environment=True)
-    cam = Camera().spec(MAIN_RES, MAIN_RES)
+    cam = Camera().spec(MAIN_RES, MAIN_RES, device=scene.device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2074,43 +2175,31 @@ def phase_bench(sm: Smoke, main_ms: float):
 
 def camera_profile(scene, spec, cfg, tag: str, ref_ms: float):
     """One profiled window of CAMERA_PROFILE_FRAMES mxu dispatches with
-    `spec`: host<->device copies and stream synchronisations per frame
-    (runtime calls on the host, copies on the device), then
-    report_profile's device busy time and idle share."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    `spec`: host waits per frame (host_wait_counts), then report_profile's
+    device busy time and idle share."""
     from rtm_tpu_torch.bench.protocol import dispatcher, finish
 
     n = CAMERA_PROFILE_FRAMES
     dispatch = dispatcher(scene, spec, cfg, "mxu")
     finish(dispatch(1))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for fi in range(2, 2 + n):
-            dispatch(fi)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    names = [(e.name, e.device_type) for e in prof.events()]
-    syncs = sum(1 for nm, _ in names if nm == "cudaStreamSynchronize")
-    htod = sum(1 for nm, dt in names
-               if dt == DeviceType.CUDA and "HtoD" in nm)
-    dtoh = sum(1 for nm, dt in names
-               if dt == DeviceType.CUDA and "DtoH" in nm)
+    t0 = time.perf_counter()
+    prof = profile_window(lambda: [dispatch(fi) for fi in range(2, 2 + n)])
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    w = host_wait_counts(prof, n)
     print(f"[{tag}] per frame over {n} profiled frames: "
-          f"cudaStreamSynchronize={syncs / n:.2f} memcpy_HtoD={htod / n:.2f} "
-          f"memcpy_DtoH={dtoh / n:.2f}", flush=True)
+          f"cudaStreamSynchronize={w['cudaStreamSynchronize']:.2f} "
+          f"memcpy_HtoD_pageable={w['HtoD_pageable']:.2f} "
+          f"memcpy_HtoD_pinned={w['HtoD_pinned']:.2f} "
+          f"memcpy_DtoH={w['DtoH']:.2f}", flush=True)
     report_profile(prof, tag, n, wall_ms, ref_ms)
-    return syncs / n, htod / n
 
 
 def phase_bench_camera(sm: Smoke, scene):
     """The per-frame camera copy: render_dispatch(mxu) on scene 3 at the
     main path's shape with the camera spec on the CPU (Camera.spec's
-    default, as the port's callers build it) against the spec on the card
-    (as the bench drivers build it).  Frames 1 and 2 bitwise equal; then
+    default device: its row reaches the card each frame by a copy from
+    pinned memory) against the spec on the card (as every caller in the
+    port builds it).  Frames 1 and 2 bitwise equal; then
     protocol.timed_blocks of CAMERA_BLOCKS x CAMERA_REPEATS frames in turns
     CPU, card, card, CPU; the medians; and from one profiled window each,
     stream synchronisations and host-to-device copies per frame."""
@@ -2122,7 +2211,7 @@ def phase_bench_camera(sm: Smoke, scene):
     cfg = RenderConfig(width=MAIN_RES, height=MAIN_RES,
                        max_bounces=MAIN_BOUNCES, max_frames=1,
                        draw_environment=True, accumulate=True)
-    specs = {"cpu": Camera().spec(cfg.width, cfg.height),
+    specs = {"cpu": Camera().spec(cfg.width, cfg.height, device="cpu"),
              "card": Camera().spec(cfg.width, cfg.height,
                                    device=scene.device)}
     dispatch = {w: dispatcher(scene, spec, cfg, "mxu")
@@ -2219,6 +2308,278 @@ def phase_bench_bigscene(sm: Smoke):
              f"{launches}")
 
 
+HOST_WAIT_WARM, HOST_WAIT_TIMED = 5, 10
+HOST_WAIT_OPEN = 2
+POSTPASS_FRAMES, POSTPASS_REPLAYS = 10, 20
+
+
+def main_cfg():
+    from rtm_tpu_torch import RenderConfig
+
+    return RenderConfig(width=MAIN_RES, height=MAIN_RES,
+                        max_bounces=MAIN_BOUNCES, max_frames=1,
+                        draw_environment=True, accumulate=True)
+
+
+def cpu_field_spec(cam, cfg):
+    """`cam`'s spec on the CPU with no packed row: the camera as the port's
+    frames took it before (fields on the host, the row packed from them
+    each dispatch)."""
+    return dataclasses.replace(cam.spec(cfg.width, cfg.height,
+                                        device="cpu"))
+
+
+def no_host_waits(frames):
+    """Run frames() (which queues frames and returns their outputs) under
+    torch.cuda.set_sync_debug_mode("error"), then synchronise; returns
+    (outputs, the error it raised or None, device ms from CUDA events)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    out, err = None, None
+    start.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = frames()
+    except RuntimeError as e:
+        err = e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    end.record()
+    torch.cuda.synchronize()
+    return out, err, start.elapsed_time(end)
+
+
+def profiled_waits(frames, n: int) -> dict:
+    """host_wait_counts over a profile_window of frames() (n frames)."""
+    return host_wait_counts(profile_window(frames), n)
+
+
+def check_waits(sm: Smoke, tag: str, err, waits: dict, ms: float,
+                same: bool, launches, expect: str):
+    print(f"[host-waits] {tag}: set_sync_debug_mode(error) raised="
+          f"{'nothing' if err is None else repr(str(err)[:160])} "
+          f"per frame: cudaStreamSynchronize="
+          f"{waits['cudaStreamSynchronize']:.2f} cudaEventSynchronize="
+          f"{waits['cudaEventSynchronize']:.2f} cudaDeviceSynchronize="
+          f"{waits['cudaDeviceSynchronize']:.2f} memcpy_HtoD_pageable="
+          f"{waits['HtoD_pageable']:.2f} memcpy_HtoD_pinned="
+          f"{waits['HtoD_pinned']:.2f} memcpy_DtoH={waits['DtoH']:.2f} "
+          f"device_busy_ms/frame={waits['device_busy_ms']:.4f} "
+          f"ms/frame={ms:.4f} idle_share_unprofiled="
+          f"{1.0 - waits['device_busy_ms'] / ms:.4f} device_launches/frame="
+          f"{waits['device_launches']:.1f} frames bitwise equal to the CPU-"
+          f"spec frames={same} launches={launches}",
+          flush=True)
+    sm.check(err is None, f"host-waits {tag}: the frames synchronised: "
+             f"{err}")
+    sm.check(waits["window_found"], f"host-waits {tag}: the profile holds "
+             f"no {WAIT_WINDOW} span")
+    for key in ("cudaStreamSynchronize", "cudaEventSynchronize",
+                "cudaDeviceSynchronize", "HtoD_pageable", "DtoH"):
+        sm.check(waits[key] == 0, f"host-waits {tag}: {key} "
+                 f"{waits[key]:.2f} per frame")
+    sm.check(same, f"host-waits {tag}: frames differ from the CPU-spec "
+             f"frames")
+    sm.check(launches.get(expect, 0) == HOST_WAIT_TIMED
+             and sum(launches.values()) == HOST_WAIT_TIMED,
+             f"host-waits {tag}: launches {launches}, not "
+             f"{HOST_WAIT_TIMED} {expect}")
+
+
+def host_waits_progressive(sm: Smoke, tag: str, scene, backend: str,
+                           expect: str):
+    """render_progressive on `scene` through `backend` (which must route to
+    `expect`) at the main path's shape: HOST_WAIT_WARM warm frames, then
+    HOST_WAIT_TIMED frames under set_sync_debug_mode("error") (by CUDA
+    events), the same frames profiled (host waits per frame), and each of
+    those frames' render_dispatch and the accumulated image against the
+    same with a CPU spec (the post-pass is the dense form), bitwise."""
+    import torch
+    from rtm_tpu_torch import Camera, render_dispatch, render_progressive
+    from rtm_tpu_torch.ops.trace_ref import resolve_route
+
+    cfg = main_cfg()
+    cam = Camera()
+    spec = cam.spec(cfg.width, cfg.height, device=scene.device)
+    route = resolve_route(scene, cfg, backend)
+    sm.check(route == expect, f"host-waits {tag}: {backend} routed to "
+             f"{route}, not {expect}")
+    n = HOST_WAIT_TIMED
+
+    def frames():
+        return render_progressive(scene, spec, cfg, n, backend=backend)
+
+    render_progressive(scene, spec, cfg, HOST_WAIT_WARM, backend=backend)
+    zero_launches()
+    img, err, ms = no_host_waits(frames)
+    launches = path_launches()
+    waits = profiled_waits(frames, n)
+    ref = cpu_field_spec(cam, cfg)
+    want = render_progressive(scene, ref, cfg, n, backend=backend)
+    same = img is not None and torch.equal(img, want)
+    for fi in range(1, n + 1):
+        same &= torch.equal(
+            render_dispatch(scene, spec, fi, cfg, backend=backend),
+            render_dispatch(scene, ref, fi, cfg, backend=backend))
+    check_waits(sm, tag, err, waits, ms / n, same, launches, expect)
+    return waits, ms / n
+
+
+def host_waits_step_async(sm: Smoke, scene):
+    """ProgressiveRenderer.step_async on scene 3 (auto -> mxu) with the
+    camera moved before every frame (each rebuilds the spec and resets the
+    accumulation, as the viewer's camera input does): HOST_WAIT_WARM
+    frames, then HOST_WAIT_TIMED under set_sync_debug_mode("error"), the
+    same profiled, and each timed frame against render_dispatch of the
+    same camera with a CPU spec, bitwise."""
+    import torch
+    from rtm_tpu_torch import render_dispatch
+    from rtm_tpu_torch.runtime.renderer import ProgressiveRenderer
+
+    cfg = main_cfg()
+    r = ProgressiveRenderer(scene, cfg=cfg)
+    n = HOST_WAIT_TIMED
+
+    def frames():
+        outs = []
+        for _ in range(n):
+            r.move_camera(right=0.01, up=0.005)
+            outs.append((dataclasses.replace(r.camera), r.step_async()))
+        return outs
+
+    for _ in range(HOST_WAIT_WARM):
+        r.move_camera(right=0.01)
+        r.step_async()
+    zero_launches()
+    outs, err, ms = no_host_waits(frames)
+    launches = path_launches()
+    waits = profiled_waits(frames, n)
+    same = outs is not None
+    for cam, out in outs or ():
+        same &= torch.equal(out, render_dispatch(
+            scene, cpu_field_spec(cam, cfg), 1, cfg))
+    check_waits(sm, "step_async scene3 mxu, moving camera", err, waits,
+                ms / n, same, launches, "mxu")
+
+
+def host_waits_open(scene, backend: str, check_nans: bool = False):
+    """The host waits per frame of a route this slice leaves as it is
+    (reported, not checked): one warm frame of render_dispatch at the main
+    path's shape, then HOST_WAIT_OPEN profiled, through
+    utils/guards.checked_render_dispatch when check_nans."""
+    from rtm_tpu_torch import Camera, render_dispatch
+    from rtm_tpu_torch.utils.guards import checked_render_dispatch
+
+    cfg = main_cfg()
+    spec = Camera().spec(cfg.width, cfg.height, device=scene.device)
+    n = HOST_WAIT_OPEN
+
+    def frames():
+        for fi in range(2, 2 + n):
+            if check_nans:
+                checked_render_dispatch(scene, spec, fi, cfg)
+            else:
+                render_dispatch(scene, spec, fi, cfg, backend=backend)
+
+    render_dispatch(scene, spec, 1, cfg, backend=backend)
+    w = profiled_waits(frames, n)
+    print(f"[host-waits] open, not repaired: scene3 {backend}"
+          f"{' --check-nans' if check_nans else ''} per frame: "
+          f"cudaStreamSynchronize={w['cudaStreamSynchronize']:.2f} "
+          f"memcpy_HtoD_pageable={w['HtoD_pageable']:.2f} "
+          f"memcpy_DtoH={w['DtoH']:.2f} "
+          f"device_busy_ms/frame={w['device_busy_ms']:.4f}", flush=True)
+
+
+def phase_host_waits(sm: Smoke, cases, scene3):
+    """[host-waits]: no steady-state frame of the fused routes makes the
+    host wait, through render_progressive on each case (tag, scene,
+    backend, expected route) and through ProgressiveRenderer.step_async on
+    scene 3 with a moving camera; then the waits of the routes left open
+    (wavefront2, pallas, xla, and xla under --check-nans) on scene 3."""
+    for tag, scene, backend, expect in cases:
+        host_waits_progressive(sm, tag, scene, backend, expect)
+    host_waits_step_async(sm, scene3)
+    for backend in ("wavefront2", "pallas", "xla"):
+        host_waits_open(scene3, backend)
+    host_waits_open(scene3, "xla", check_nans=True)
+
+
+def phase_postpass_forms(sm: Smoke, tag: str, scene, route: str):
+    """The post-pass's forms on the records of POSTPASS_FRAMES frames of
+    `route`'s kernel (mxu or megakernel) on `scene` at the main path's
+    shape: dense; compact at the static capacity n * bounces; compact at
+    capacity n with the dense form beside it and the device choosing by
+    the frame's count.  Each form's device ms per frame by CUDA-graph
+    replay (POSTPASS_REPLAYS replays of one frame's post-pass, forms in
+    turns dense, b, c, c, b, dense) and eager through torch by CUDA
+    events; the frames whose significant count exceeds n; and every form
+    bitwise equal to the dense form on every frame."""
+    import torch
+    from rtm_tpu_torch import Camera
+    from rtm_tpu_torch.ops.kernels.megakernel import (
+        _pack_camera, build_mega_pack, mega_postpass_compact,
+        mega_postpass_dense, mega_trace)
+    from rtm_tpu_torch.ops.kernels.mxu_kernel import mxu_trace, side_tables
+
+    cfg = main_cfg()
+    n, nb = cfg.width * cfg.height, cfg.width * cfg.height * cfg.max_bounces
+    camf = _pack_camera(Camera().spec(cfg.width, cfg.height,
+                                      device=scene.device))
+    if route == "mxu":
+        tabs = side_tables(scene)
+        recs = [mxu_trace(scene, tabs, camf, fi, 0, n, cfg)[:3]
+                for fi in range(1, POSTPASS_FRAMES + 1)]
+    else:
+        pack = build_mega_pack(scene)
+        recs = [mega_trace(scene, pack, camf, fi, 0, n, cfg)[:3]
+                for fi in range(1, POSTPASS_FRAMES + 1)]
+    forms = {
+        "dense": lambda c, m, r: mega_postpass_dense(c.T, m, r, scene, cfg,
+                                                     n),
+        "compact_cap_nB": lambda c, m, r: mega_postpass_compact(
+            c.T, m, r, scene, cfg, n, cap=nb),
+        "compact_cap_n_select": lambda c, m, r: mega_postpass_compact(
+            c.T, m, r, scene, cfg, n, cap=n)}
+    over = 0
+    for _, _, rec in recs:
+        rt = rec.view(cfg.max_bounces, 8, n)
+        sig = (rt[:, 6] > -0.5) | (rt[:, 0:3].abs().sum(dim=1) > 0.0)
+        over += int(sig.sum()) > n
+    same = all(torch.equal(f(*r), forms["dense"](*r))
+               for r in recs for f in forms.values())
+    graphs = {}
+    for name, f in forms.items():
+        f(*recs[0])
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            f(*recs[0])
+        graphs[name] = g
+    replay = {name: [] for name in forms}
+    eager = {name: [] for name in forms}
+    order = ["dense", "compact_cap_nB", "compact_cap_n_select"]
+    for name in order + order[::-1]:
+        replay[name].append(cuda_ms(graphs[name].replay, POSTPASS_REPLAYS))
+        eager[name].append(cuda_ms(lambda: [forms[name](*r) for r in recs],
+                                   1) / len(recs))
+    del graphs
+    for name in order:
+        print(f"[postpass-forms] {tag} route={route} form={name}: device "
+              f"ms/frame (graph replay) {replay[name][0]:.4f} / "
+              f"{replay[name][1]:.4f}, eager ms/frame (CUDA events) "
+              f"{eager[name][0]:.4f} / {eager[name][1]:.4f}", flush=True)
+    best = min(order, key=lambda k: sum(replay[k]))
+    print(f"[postpass-forms] {tag}: frames whose significant records "
+          f"exceed n={n}: {over} of {len(recs)}; least device time: {best}; "
+          f"every form bitwise equal to the dense form={same}", flush=True)
+    sm.check(same, f"postpass-forms {tag}: a form differs from the dense "
+             "form")
+
+
 def shard_cfg():
     from rtm_tpu_torch import RenderConfig
 
@@ -2244,7 +2605,7 @@ def phase_shard_band(sm: Smoke, scene, tscene):
                                                  render_band)
 
     cfg = shard_cfg()
-    cam = Camera().spec(cfg.width, cfg.height)
+    cam = Camera().spec(cfg.width, cfg.height, device=scene.device)
     grid = f"dragon_grid{TRAV_GRID}"
     for name, sc, be in (("scene3", scene, "mxu"), (grid, tscene, "trav"),
                          (grid, tscene, "megakernel"),
@@ -2293,7 +2654,7 @@ def shard_refs(scene):
     from rtm_tpu_torch.diff import extract_params, loss_and_grad
 
     cfg = shard_cfg()
-    cam = Camera().spec(cfg.width, cfg.height)
+    cam = Camera().spec(cfg.width, cfg.height, device=scene.device)
     frame = render_dispatch(scene, cam, 1, cfg, backend="mxu")
 
     def host_ms(fn, reps):
@@ -2524,14 +2885,14 @@ def main() -> int:
     with sm.phase("plain"):
         # the plain version at the main path's shape, and its image
         # against the kernel's (frame 1, same rays)
-        camf = _pack_camera(Camera().spec(cfg.width, cfg.height),
-                            scene.device)
+        camf = _pack_camera(Camera().spec(cfg.width, cfg.height,
+                                          device=scene.device))
         tabs = side_tables(scene)
         plain_ms = cuda_ms(
             lambda: mxu_trace_plain(scene, tabs, camf, 1, 0, n, cfg), 3)
         p_out = mxu_trace_plain(scene, tabs, camf, 1, 0, n, cfg)
-        k_img = render_dispatch(scene, Camera().spec(cfg.width, cfg.height),
-                                1, cfg)
+        k_img = render_dispatch(scene, Camera().spec(
+            cfg.width, cfg.height, device=scene.device), 1, cfg)
         p_img = slots_to_image(mega_postpass(p_out[0].T, p_out[1], p_out[2],
                                              scene, cfg, n), cfg.width,
                                cfg.height)
@@ -2634,12 +2995,25 @@ def main() -> int:
                       backend="megakernel")
     with sm.phase("shard-band"):
         phase_shard_band(sm, scene, tscene)
-        del tscene
     with sm.phase("mega-auto"):
         ascene, acfg, auto_ms = phase_mega_auto(sm)
     with sm.phase("mega-auto-profile"):
         phase_profile(ascene, acfg, 2, auto_ms, tag="mega-auto-profile")
-        del ascene
+    with sm.phase("host-waits"):
+        wide, _ = build_scene(dragon_grid(grid_k))
+        auto_tag = f"mega-auto textured dragon_grid{MEGA_AUTO_GRID}"
+        phase_host_waits(sm, [
+            ("main scene3 mxu", scene, "auto", "mxu"),
+            (f"wide dragon_grid{grid_k} mxu", wide, "auto", "mxu"),
+            ("mega scene3 megakernel", scene, "megakernel", "megakernel"),
+            (auto_tag, ascene, "auto", "megakernel"),
+            (f"trav dragon_grid{TRAV_GRID}", tscene, "auto", "trav")],
+            scene)
+        del wide
+    with sm.phase("postpass-forms"):
+        phase_postpass_forms(sm, "main scene3", scene, "mxu")
+        phase_postpass_forms(sm, auto_tag, ascene, "megakernel")
+        del ascene, tscene
     with sm.phase("cli"):
         phase_cli(sm)
     with sm.phase("editor"):

@@ -113,8 +113,8 @@ def _debug_heatmap(args, scene, cam, cfg) -> int:
 
     with torch.no_grad():
         _, passes = render_rays_wavefront2(
-            scene, cam.spec(cfg.width, cfg.height), 1, cfg, pixel_offset=0,
-            n_rays=cfg.num_pixels, debug_passes=True)
+            scene, cam.spec(cfg.width, cfg.height, device=scene.device), 1,
+            cfg, pixel_offset=0, n_rays=cfg.num_pixels, debug_passes=True)
     passes = passes.cpu().numpy().astype(np.float32)
     if use_block8(cfg.width, cfg.height):
         p = np.arange(cfg.num_pixels, dtype=np.int64)
@@ -139,7 +139,7 @@ def cmd_render(args) -> int:
     scene, cam, cfg, backend = _setup(args)
     if args.debug:
         return _debug_heatmap(args, scene, cam, cfg)
-    spec = cam.spec(cfg.width, cfg.height)
+    spec = cam.spec(cfg.width, cfg.height, device=scene.device)
     if args.check_nans and backend == "xla":
         from rtm_tpu_torch.utils.guards import checked_render_dispatch
         # instrumented first frame: names the first bad bounce and tensor
@@ -230,7 +230,7 @@ def cmd_optimize(args) -> int:
     from rtm_tpu_torch.ops.trace_ref import render_dispatch
 
     scene, cam, cfg, _ = _setup(args)
-    spec = cam.spec(cfg.width, cfg.height)
+    spec = cam.spec(cfg.width, cfg.height, device=scene.device)
     with torch.no_grad():
         target = render_dispatch(scene, spec, 1, cfg, backend="xla")
     init = extract_params(scene).map(

@@ -33,7 +33,8 @@ def run_measure(scene, cfg: RenderConfig, out_path: str = "Measure.txt",
     cam = camera or Camera()
     cam.orbit(0.0, radius)
     # warm-up frame outside the timed loop (kernel build and first launch)
-    synchronize(render_dispatch(scene, cam.spec(cfg.width, cfg.height), 1,
+    synchronize(render_dispatch(scene, cam.spec(cfg.width, cfg.height,
+                                                device=scene.device), 1,
                                 cfg, backend=backend))
 
     rows = []
@@ -42,7 +43,7 @@ def run_measure(scene, cfg: RenderConfig, out_path: str = "Measure.txt",
     with open(out_path, "w") as fh:
         while angle < 360.0:
             cam.orbit(angle, radius)
-            spec = cam.spec(cfg.width, cfg.height)
+            spec = cam.spec(cfg.width, cfg.height, device=scene.device)
             timer = Timer()
             out = None
             for _ in range(frames_per_sample):

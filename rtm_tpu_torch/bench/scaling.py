@@ -40,7 +40,7 @@ def scaling_rank(mesh, dev, args, height: int):
     scene = build_tracer_scene(load_scene(args.scene), device=dev)
     cfg = RenderConfig(width=args.width, height=height,
                        max_bounces=args.bounces, draw_environment=True)
-    cam = Camera().spec(cfg.width, cfg.height)
+    cam = Camera().spec(cfg.width, cfg.height, device=dev)
 
     def frame(fi):
         img = render_sharded(scene, cam, fi, cfg, mesh, backend=args.backend)

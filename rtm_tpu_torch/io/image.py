@@ -123,6 +123,12 @@ def save_png(path, img: np.ndarray) -> None:
     Path(path).write_bytes(encode_png(np.asarray(img)))
 
 
+def save_png_pure(path, img: np.ndarray) -> None:
+    """rtm_tpu's dependency-free PNG writer (its fallback for hosts without
+    PIL); the port's `save_png` writes the same bytes."""
+    save_png(path, img)
+
+
 def encode_png(img: np.ndarray) -> bytes:
     """Dependency-free PNG encoder (8-bit RGB, no filter)."""
     if img.dtype != np.uint8:

@@ -14,10 +14,13 @@ The device-side consumption (ray generation, shader:684-706) reads
 invView column 0/1 as the right/up vectors, so CameraSpec stores logical
 (row-major numpy) matrices where column extraction matches GLSL `m[0].xyz`.
 
-The matrices are built in float64 NumPy and cast to f32 tensors at the end
-(`Camera.spec`).  A CameraSpec is small host state: it lives on the device
-`spec` is given (the CPU by default), and the renderer copies the packed
-64-float camera row to the scene's device each dispatch.
+The matrices are built in float64 NumPy and cast to f32 at the end
+(`Camera.row`, `Camera.spec`).  `Camera.spec` puts the whole spec on the
+device it is given (the CPU by default) with one copy that the host does
+not wait for: the kernels' 64-float camera row and the row-major matrices
+are packed in NumPy into one pinned buffer, copied without blocking, and
+every field of the spec is a view of that one device buffer.  So a frame
+that rebuilds its spec (a moving camera) makes no host wait.
 """
 from __future__ import annotations
 
@@ -28,9 +31,19 @@ import numpy as np
 import torch
 
 
+CAMERA_ROW = 64          # floats in the kernels' camera row
+
+
 @dataclass
 class CameraSpec:
-    """Device-ready camera uniform (ref Camera::Spec, Camera.h:11-21)."""
+    """Device-ready camera uniform (ref Camera::Spec, Camera.h:11-21).
+
+    A spec is a value: build a new one (`Camera.spec`, or
+    `dataclasses.replace`) rather than writing into its tensors.  `row` is
+    the kernels' camera row of the same values (ops/kernels/megakernel.py
+    `_pack_camera`), set by `Camera.spec`; it is not an argument, so a spec
+    built by hand or by `dataclasses.replace` has none and the row is
+    packed from its fields."""
 
     inv_projection: torch.Tensor    # (4,4) f32
     inv_view: torch.Tensor          # (4,4) f32
@@ -38,6 +51,21 @@ class CameraSpec:
     focus_distance: torch.Tensor    # () f32
     defocus_strength: torch.Tensor  # () f32
     blur_strength: torch.Tensor     # () f32
+    row: torch.Tensor | None = field(default=None, init=False, repr=False,
+                                     compare=False)
+
+
+def host_to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """`t` on `device`: from the host to a CUDA device by a copy the host
+    does not wait for, through a pinned block (PyTorch's caching host
+    allocator keeps it until the copy has run); otherwise `t.to(device)`."""
+    device = torch.device(device)
+    if t.device == device:
+        return t
+    if t.device.type == "cpu" and device.type == "cuda":
+        out = torch.empty(t.shape, dtype=t.dtype, device=device)
+        return out.copy_(t.pin_memory(), non_blocking=True)
+    return t.to(device)
 
 
 def perspective_fov(fov_rad: float, width: float, height: float,
@@ -111,18 +139,38 @@ class Camera:
                            np.asarray(self.position, np.float64) + np.asarray(self.direction, np.float64),
                            self.UP)
 
-    def spec(self, width: int, height: int, device="cpu") -> CameraSpec:
-        def f32(v):
-            return torch.from_numpy(np.asarray(v, np.float32)).to(device)
+    def row(self, width: int, height: int) -> np.ndarray:
+        """The kernels' (64,) f32 camera row, packed in NumPy: the inverse
+        projection and inverse view column-major (the kernels read m[i,j]
+        at j*4+i), position, focus distance, defocus and blur strength,
+        zeros."""
+        r = np.zeros(CAMERA_ROW, np.float32)
+        r[0:16] = np.asarray(self.inv_projection(width, height),
+                             np.float32).T.reshape(-1)
+        r[16:32] = np.asarray(self.inv_view(), np.float32).T.reshape(-1)
+        r[32:35] = np.asarray(self.position, np.float32)
+        r[35:38] = np.asarray([self.focus_distance, self.defocus_strength,
+                               self.blur_strength], np.float32)
+        return r
 
-        return CameraSpec(
-            inv_projection=f32(self.inv_projection(width, height)),
-            inv_view=f32(self.inv_view()),
-            position=f32(self.position),
-            focus_distance=f32(self.focus_distance),
-            defocus_strength=f32(self.defocus_strength),
-            blur_strength=f32(self.blur_strength),
+    def spec(self, width: int, height: int, device="cpu") -> CameraSpec:
+        """The spec on `device`, with one copy the host does not wait for:
+        one buffer holds the kernels' row and then the row-major inverse
+        projection and inverse view, and every field is a view of it."""
+        row = self.row(width, height)
+        host = np.concatenate([row, row[0:16].reshape(4, 4).T.reshape(-1),
+                               row[16:32].reshape(4, 4).T.reshape(-1)])
+        buf = host_to_device(torch.from_numpy(host), device)
+        spec = CameraSpec(
+            inv_projection=buf[CAMERA_ROW:CAMERA_ROW + 16].view(4, 4),
+            inv_view=buf[CAMERA_ROW + 16:CAMERA_ROW + 32].view(4, 4),
+            position=buf[32:35],
+            focus_distance=buf[35],
+            defocus_strength=buf[36],
+            blur_strength=buf[37],
         )
+        spec.row = buf[:CAMERA_ROW]
+        return spec
 
     # -- interactive-controller parity helpers (RayTracing.cpp:522-595) -----
     def move(self, forward: float = 0.0, right: float = 0.0, up: float = 0.0,

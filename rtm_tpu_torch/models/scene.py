@@ -147,6 +147,19 @@ class TracerScene:
     def device(self) -> torch.device:
         return self.tri_wa.device
 
+    def derived(self, key, build):
+        """`build()`, made on first use and kept with this scene: index
+        tables that follow from the scene's structure alone (its shapes,
+        cluster cut and table metadata), uploaded once as rtm_tpu's jit
+        bakes them into its executable.  Nothing derived from the values
+        of the differentiable tensors may be kept here.  A new scene (an
+        editor rebuild, `apply_params`, `dataclasses.replace`) starts with
+        none."""
+        cache = self.__dict__.setdefault("_derived", {})
+        if key not in cache:
+            cache[key] = build()
+        return cache[key]
+
 
 def _resolve_device(device) -> torch.device:
     """The card unless the caller names a device; no silent CPU fallback."""

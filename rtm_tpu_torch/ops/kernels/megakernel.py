@@ -31,9 +31,10 @@ import numpy as np
 import torch
 
 from ...config import RenderConfig
+from ...models.camera import CAMERA_ROW, host_to_device
 from ..intersect import DET_EPS, cross3
 from ..rng import U32_MASK
-from ..shade import PI, TWO_PI, env_radiance, sample_texture_quads
+from ..shade import PI, TWO_PI, sample_texture_quads, sky_tap
 from .build import check_arg, load_kernel_library, ptr
 from .vreg_common import (BIG, _cross, _normalize, _safe_inv_dirs,
                           camera_frame, jittered_ray, scatter_step,
@@ -164,6 +165,45 @@ def _sphere_rows(scene):
     return torch.cat([rows, pad], dim=1).contiguous(), sp
 
 
+class _PackIndex(NamedTuple):
+    """The pack's tables that follow from the cluster cut alone (rtm_tpu's
+    jit constants), uploaded once per scene: `build_mega_pack` keeps them
+    with the scene (TracerScene.derived)."""
+
+    offsets: tuple              # per-cluster first padded row
+    widths: tuple               # per-cluster padded width
+    p2r: torch.Tensor           # (T',) i64 padded row -> scene row, -1 pad
+    real: torch.Tensor          # (T', 1) bool: p2r >= 0
+    seg: torch.Tensor           # (T,) i64 cluster of each clustered row
+    rows: torch.Tensor          # (T,) i64 the clustered rows, cluster order
+    offsets_dev: torch.Tensor   # (C,) i32
+    widths_dev: torch.Tensor    # (C,) i32
+    padded_to_real: torch.Tensor  # (T',) i32
+
+
+def _pack_index(slices, dev) -> _PackIndex:
+    widths = _padded_widths(slices)
+    offs = [int(o) for o in np.cumsum([0] + widths[:-1])]
+    p2r = np.full(sum(widths), -1, np.int64)
+    for (lo, hi), o in zip(slices, offs):
+        p2r[o:o + hi - lo] = np.arange(lo, hi)
+    lo_i = np.array([lo for lo, _ in slices], np.int64)
+    hi_i = np.array([hi for _, hi in slices], np.int64)
+    seg = np.repeat(np.arange(len(slices)), hi_i - lo_i)
+    rows = np.concatenate([np.arange(lo, hi) for lo, hi in slices])
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    p2r_t = up(p2r)
+    return _PackIndex(
+        offsets=tuple(offs), widths=tuple(widths), p2r=p2r_t,
+        real=(p2r_t >= 0)[:, None], seg=up(seg), rows=up(rows),
+        offsets_dev=up(np.asarray(offs, np.int32)),
+        widths_dev=up(np.asarray(widths, np.int32)),
+        padded_to_real=up(p2r.astype(np.int32)))
+
+
 def build_mega_pack(scene) -> MegaPack:
     """Pack the scene into the megakernel's and the sweep's tables, on the
     scene's device and without autograd (this path is forward-only, as in
@@ -171,14 +211,18 @@ def build_mega_pack(scene) -> MegaPack:
 
     Clusters follow the scene's SAH treelet cut when present (tight,
     variable width), else fixed 128-triangle slices of the stored order.
-    Padding rows have n = 0, so det == 0 fails the gate, and texid -1."""
+    Padding rows have n = 0, so det == 0 fails the gate, and texid -1.
+    The index tables of the cut are built once per scene (`_pack_index`);
+    the features, attributes and boxes, which follow the scene's
+    differentiable tensors, are packed on every call, on the device."""
     dev = scene.device
     with torch.no_grad():
         sph, sp = (_sphere_rows(scene) if scene.num_spheres > 0
                    else (None, 0))
         if scene.num_triangles == 0:
             return MegaPack(None, None, None, sph, 0, sp)
-        slices = _cluster_slices(scene)
+        ix = scene.derived("mega_pack_index", lambda: _pack_index(
+            _cluster_slices(scene), dev))
         a = scene.tri_wa.detach()
         b = scene.tri_wb.detach()
         c = scene.tri_wc.detach()
@@ -197,39 +241,26 @@ def build_mega_pack(scene) -> MegaPack:
         vmin = verts.amin(dim=1)
         vmax = verts.amax(dim=1)
 
-        widths = _padded_widths(slices)
-        offs = [int(o) for o in np.cumsum([0] + widths[:-1])]
-        p2r = np.full(sum(widths), -1, np.int64)
-        for (lo, hi), o in zip(slices, offs):
-            p2r[o:o + hi - lo] = np.arange(lo, hi)
-        p2r_t = torch.from_numpy(p2r).to(dev)
-        real = (p2r_t >= 0)[:, None]
-        tri_feats = torch.where(real, feats[p2r_t.clamp(min=0)], 0.0)
-        attrs = torch.where(real, _attr_rows(scene, n, an)[p2r_t.clamp(min=0)],
-                            0.0)
-        attrs[:, _A_TEX] = torch.where(real[:, 0], attrs[:, _A_TEX], -1.0)
-        lo_i = torch.tensor([s[0] for s in slices], device=dev)
-        hi_i = torch.tensor([s[1] for s in slices], device=dev)
-        seg = torch.repeat_interleave(torch.arange(len(slices), device=dev),
-                                      hi_i - lo_i)
-        rows = torch.cat([torch.arange(s[0], s[1]) for s in slices]).to(dev)
-        box_lo = torch.full((len(slices), 3), float("inf"), device=dev)
-        box_hi = torch.full((len(slices), 3), float("-inf"), device=dev)
-        box_lo = box_lo.scatter_reduce(0, seg[:, None].expand(-1, 3),
-                                       vmin[rows], "amin")
-        box_hi = box_hi.scatter_reduce(0, seg[:, None].expand(-1, 3),
-                                       vmax[rows], "amax")
+        nc = len(ix.widths)
+        src = ix.p2r.clamp(min=0)
+        tri_feats = torch.where(ix.real, feats[src], 0.0)
+        attrs = torch.where(ix.real, _attr_rows(scene, n, an)[src], 0.0)
+        attrs[:, _A_TEX] = torch.where(ix.real[:, 0], attrs[:, _A_TEX], -1.0)
+        seg3 = ix.seg[:, None].expand(-1, 3)
+        box_lo = torch.full((nc, 3), float("inf"), device=dev)
+        box_hi = torch.full((nc, 3), float("-inf"), device=dev)
+        box_lo = box_lo.scatter_reduce(0, seg3, vmin[ix.rows], "amin")
+        box_hi = box_hi.scatter_reduce(0, seg3, vmax[ix.rows], "amax")
         boxes = torch.cat([box_lo, box_hi,
-                           torch.zeros((len(slices), 2), device=dev)], dim=1)
+                           torch.zeros((nc, 2), device=dev)], dim=1)
     return MegaPack(
         tri_feats=tri_feats.contiguous(),
         tri_attrs=_bf16_split_sum(attrs).contiguous(),
         boxes=boxes.contiguous(), spheres=sph,
-        n_clusters=len(slices), n_spheres_padded=sp,
-        cluster_offsets=tuple(offs), cluster_widths=tuple(widths),
-        offsets_dev=torch.tensor(offs, dtype=torch.int32, device=dev),
-        widths_dev=torch.tensor(widths, dtype=torch.int32, device=dev),
-        padded_to_real=p2r_t.to(torch.int32))
+        n_clusters=nc, n_spheres_padded=sp,
+        cluster_offsets=ix.offsets, cluster_widths=ix.widths,
+        offsets_dev=ix.offsets_dev, widths_dev=ix.widths_dev,
+        padded_to_real=ix.padded_to_real)
 
 
 def megakernel_fits(scene, cfg: RenderConfig) -> bool:
@@ -358,17 +389,24 @@ def slots_to_image(color, width: int, height: int):
 # ---------------------------------------------------------------------------
 
 def _pack_camera(cam, device=None) -> torch.Tensor:
-    """Pack camera scalars into one (64,) f32 row — matrices stored
-    column-major (the kernels read m[i,j] at j*4+i)."""
-    camf = torch.zeros(64, dtype=torch.float32,
-                       device=cam.inv_projection.device)
-    camf[0:16] = cam.inv_projection.T.reshape(-1)
-    camf[16:32] = cam.inv_view.T.reshape(-1)
-    camf[32:35] = cam.position
-    camf[35] = cam.focus_distance
-    camf[36] = cam.defocus_strength
-    camf[37] = cam.blur_strength
-    return camf if device is None else camf.to(device)
+    """The spec's (64,) f32 camera row on `device` (default: the spec's) —
+    matrices stored column-major (the kernels read m[i,j] at j*4+i).  A
+    spec from `Camera.spec` carries the row already; another is packed
+    from its fields.  A row on the host reaches a CUDA device by a copy
+    the host does not wait for (models/camera.py `host_to_device`)."""
+    camf = cam.row
+    if camf is None:
+        camf = torch.zeros(CAMERA_ROW, dtype=torch.float32,
+                           device=cam.inv_projection.device)
+        camf[0:16] = cam.inv_projection.T.reshape(-1)
+        camf[16:32] = cam.inv_view.T.reshape(-1)
+        camf[32:35] = cam.position
+        camf[35] = cam.focus_distance
+        camf[36] = cam.defocus_strength
+        camf[37] = cam.blur_strength
+    if device is None or camf.device == torch.device(device):
+        return camf
+    return host_to_device(camf, device)
 
 
 # ---------------------------------------------------------------------------
@@ -400,9 +438,7 @@ def _add_sky(color, miss, f: int, n: int, scene, cfg, pt=None):
     mdir = miss[frow:frow + 3, :n].T
     mctr = miss[frow + 3:frow + 6, :n].T
     mmask = miss[frow + 6, :n] > 0.5
-    mdir = torch.where(mmask[:, None], mdir,
-                       torch.tensor([1.0, 0.0, 0.0], device=mdir.device))
-    sky_term = mctr * env_radiance(scene, mdir) * (
+    sky_term = mctr * sky_tap(scene, mdir, mmask) * (
         1.0 if cfg.draw_environment else 0.0)
     if pt is not None:
         sky_term = sky_term * pt
@@ -410,11 +446,13 @@ def _add_sky(color, miss, f: int, n: int, scene, cfg, pt=None):
 
 
 def mega_postpass(color, miss, rec, scene, cfg, n: int):
-    """The texture/sky reconstruction over the kernel's deferred records:
-    the compacted form for textured multi-bounce scenes, the dense form
-    otherwise."""
-    if scene.any_textured and cfg.max_bounces > 1:
-        return mega_postpass_compact(color, miss, rec, scene, cfg, n)
+    """The texture/sky reconstruction over the kernels' deferred records:
+    the dense form, on every scene.  rtm_tpu takes its compacted form for
+    textured multi-bounce scenes unless `RTM_DENSE_POSTPASS=1`; on the
+    H100 the dense form takes the least device time of the forms that
+    read no count on the host (chip_smoke.py [postpass-forms], PERF.md),
+    so the port's post-pass is the one that switch forces in rtm_tpu, and
+    it has no switch.  The compacted form gives the same bits."""
     return mega_postpass_dense(color, miss, rec, scene, cfg, n)
 
 
@@ -455,6 +493,47 @@ def mega_postpass_dense(color, miss, rec, scene, cfg, n: int):
     return color / float(frames)                          # shader:711
 
 
+def _compact_frame(rt, color, scene, n: int, cap: int, bits: int,
+                   have_sph: bool, sig_rays, cnt):
+    """One frame of the compacted reconstruction over rt = (B, 8, n)
+    records, given each slot's significance (n, B), each ray's count and
+    the slot ids' width `bits`: (color with texture terms added, final
+    albedo product).  Exact where the frame's significant count is at
+    most `cap`; past it the caller takes the dense form's."""
+    bounces = rt.shape[0]
+    nb = n * bounces
+    dev = color.device
+    start = torch.cumsum(cnt, 0, dtype=torch.int32) - cnt
+    slot = torch.arange(nb, dtype=torch.int32, device=dev)
+    key = slot | torch.where(sig_rays.reshape(-1), 0, 1 << bits).to(
+        torch.int32)
+    skey = torch.sort(key).values[:cap]
+    valid = skey < (1 << bits)
+    perm = (skey & ((1 << bits) - 1)).long()
+
+    rec_t = rt.permute(2, 0, 1).reshape(nb, 8)
+    crec = rec_t[perm]                                         # (cap, 8)
+    has_tex = (crec[:, 6] > -0.5) & valid
+    uu, vv = _tex_uv_of_records(crec[:, 3], crec[:, 4], crec[:, 5],
+                                crec[:, 7] > 0.5, have_sph)
+    tex_c = _sample_scene_textures(
+        scene, torch.where(has_tex, crec[:, 6].to(torch.int32), 0),
+        torch.where(has_tex, uu, 0.0),
+        torch.where(has_tex, vv, 0.0))                         # (cap, 3)
+
+    k = torch.arange(bounces, device=dev)
+    seg = k[None, :] < cnt[:, None]                            # (n, B)
+    pos = torch.clamp(start[:, None] + k[None, :], 0, cap - 1).long()
+    s_k = torch.where(seg[..., None], crec[pos, 0:3], 0.0)
+    f_k = torch.where((has_tex[pos] & seg)[..., None], tex_c[pos],
+                      1.0)                                     # albedo
+    pt = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    for b in range(bounces):
+        color = color + s_k[:, b] * pt * f_k[:, b]
+        pt = pt * f_k[:, b]
+    return color, pt
+
+
 def mega_postpass_compact(color, miss, rec, scene, cfg, n: int,
                           cap: int | None = None):
     """Compacted texture/sky reconstruction: taps only the significant
@@ -471,11 +550,12 @@ def mega_postpass_compact(color, miss, rec, scene, cfg, n: int,
          records add 0 and multiply by 1, exactly), from one (n, B)
          gather of each ray's segment.
 
-    A frame whose significant count exceeds `cap` (default n) takes the
-    dense form instead: a host branch on that count, one `.item()` per
-    frame.  Both branches give the same bits, so a frame does not depend
-    on how its slots were split into dispatches (rtm_tpu's compact form
-    sums by a segmented scan, in another order).
+    `cap` (default n) below n * bounces can overflow: each frame then also
+    runs the dense form and the device selects by the frame's count
+    (rtm_tpu's `lax.cond`), with no host read.  Both forms give the same
+    bits, so a frame does not depend on the capacity or on how its slots
+    were split into dispatches (rtm_tpu's compact form sums by a
+    segmented scan, in another order).
     """
     frames = cfg.max_frames
     bounces = cfg.max_bounces
@@ -485,10 +565,8 @@ def mega_postpass_compact(color, miss, rec, scene, cfg, n: int,
     bits = max(int(np.ceil(np.log2(max(nb, 2)))), 1)
     if bits > 30:
         raise ValueError("slot id + sentinel bit must fit int32")
-    if cap is None:
-        cap = n
+    cap = n if cap is None else min(cap, nb)
     have_sph = int(scene.sph_pos.shape[0]) > 0
-    dev = color.device
 
     for f in range(frames):
         rt = rec[f * bounces * 8:(f + 1) * bounces * 8, :n].reshape(
@@ -496,39 +574,14 @@ def mega_postpass_compact(color, miss, rec, scene, cfg, n: int,
         s_abs = rt[:, 0].abs() + rt[:, 1].abs() + rt[:, 2].abs()
         sig_rays = ((rt[:, 6] > -0.5) | (s_abs > 0.0)).T       # (n, B)
         cnt = sig_rays.sum(dim=1, dtype=torch.int32)
-        n_sig = int(cnt.sum())
-        if n_sig > cap:
-            color, pt = _dense_frame(rt, color, scene, n, have_sph)
-        else:
-            start = torch.cumsum(cnt, 0, dtype=torch.int32) - cnt
-            slot = torch.arange(nb, dtype=torch.int32, device=dev)
-            key = slot | torch.where(sig_rays.reshape(-1), 0, 1 << bits).to(
-                torch.int32)
-            skey = torch.sort(key).values[:cap]
-            valid = skey < (1 << bits)
-            perm = (skey & ((1 << bits) - 1)).long()
-
-            rec_t = rt.permute(2, 0, 1).reshape(nb, 8)
-            crec = rec_t[perm]                                 # (cap, 8)
-            has_tex = (crec[:, 6] > -0.5) & valid
-            uu, vv = _tex_uv_of_records(crec[:, 3], crec[:, 4], crec[:, 5],
-                                        crec[:, 7] > 0.5, have_sph)
-            tex_c = _sample_scene_textures(
-                scene, torch.where(has_tex, crec[:, 6].to(torch.int32), 0),
-                torch.where(has_tex, uu, 0.0),
-                torch.where(has_tex, vv, 0.0))                 # (cap, 3)
-
-            k = torch.arange(bounces, device=dev)
-            seg = k[None, :] < cnt[:, None]                       # (n, B)
-            pos = torch.clamp(start[:, None] + k[None, :], 0, cap - 1).long()
-            s_k = torch.where(seg[..., None], crec[pos, 0:3], 0.0)
-            f_k = torch.where((has_tex[pos] & seg)[..., None], tex_c[pos],
-                              1.0)                                 # albedo
-            pt = torch.ones((n, 3), dtype=torch.float32, device=dev)
-            for b in range(bounces):
-                color = color + s_k[:, b] * pt * f_k[:, b]
-                pt = pt * f_k[:, b]
-        color = _add_sky(color, miss, f, n, scene, cfg, pt)
+        t_color, pt = _compact_frame(rt, color, scene, n, cap, bits,
+                                     have_sph, sig_rays, cnt)
+        if cap < nb:
+            d_color, d_pt = _dense_frame(rt, color, scene, n, have_sph)
+            fits = cnt.sum() <= cap
+            t_color = torch.where(fits, t_color, d_color)
+            pt = torch.where(fits, pt, d_pt)
+        color = _add_sky(t_color, miss, f, n, scene, cfg, pt)
 
     return color / float(frames)                          # shader:711
 

@@ -305,12 +305,15 @@ def traced_mat_tab(materials) -> torch.Tensor:
 
 def traced_tex_tab(scene, textured_rows: tuple) -> torch.Tensor:
     """(X_ROWS, 128) f32 uv/local-barycentric side table of the textured
-    triangles (shader:257-268,575-580), slot i = scene row textured_rows[i]."""
+    triangles (shader:257-268,575-580), slot i = scene row textured_rows[i];
+    the row index is uploaded once per scene (TracerScene.derived)."""
     rows = torch.zeros((X_ROWS, TAB_W), dtype=torch.float32,
                        device=scene.tri_wa.device)
     if textured_rows:
-        r = torch.tensor(textured_rows, dtype=torch.long,
-                         device=rows.device)
+        r = scene.derived(("textured_rows", textured_rows),
+                          lambda: torch.tensor(textured_rows,
+                                               dtype=torch.long,
+                                               device=rows.device))
         w = len(textured_rows)
         rows[_X_LAX:_X_LAZ + 1, :w] = scene.tri_la[r].T
         rows[_X_ABX:_X_ABZ + 1, :w] = scene.tri_lab[r].T

@@ -82,3 +82,21 @@ def pixel_seed(x, y, width: int, frame: int, frame_index: int):
     lin = (y.to(torch.int64) * width + x.to(torch.int64)) & U32_MASK
     step = (frame * (int(frame_index) & U32_MASK) * SEED_STRIDE) & U32_MASK
     return (lin + step) & U32_MASK
+
+
+# ---------------------------------------------------------------------------
+# NumPy scalar mirror (host-side golden values for tests)
+# ---------------------------------------------------------------------------
+
+def pcg_hash_np(seed: int) -> int:
+    """pcg_hash of one u32 in Python integers."""
+    state = (seed * 747796405 + 2891336453) & U32_MASK
+    shift = ((state >> 28) + 4) & U32_MASK
+    word = (((state >> shift) ^ state) * 277803737) & U32_MASK
+    return ((word >> 22) ^ word) & U32_MASK
+
+
+def fast_random_np(seed: int):
+    """fast_random of one u32: (np.float32 value, new seed)."""
+    seed = pcg_hash_np(seed)
+    return np.float32(np.float32(seed) / np.float32(UINT_MAX_F)), seed

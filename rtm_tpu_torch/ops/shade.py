@@ -71,6 +71,50 @@ def quad_exact_u8(img) -> bool:
 # Samplers (device side)
 # ---------------------------------------------------------------------------
 
+def _bilinear_gather(img, yi, xi):
+    """img (H,W,3); yi/xi (...,) int already wrapped/clamped: the texels,
+    gathered through a flattened (H*W, 3) view with linear indices."""
+    w = img.shape[1]
+    return img.reshape(-1, img.shape[-1])[(yi * w + xi).long()]
+
+
+def sample_bilinear(img, u, v, wrap: str):
+    """GPU-convention bilinear sample of img (H,W,3) at normalized (u,v),
+    four texel taps.
+
+    texel center convention: x = u*W - 0.5.  wrap: 'repeat' (Vulkan
+    REPEAT, scene textures) or 'clamp' (CLAMP_TO_EDGE, sky map) — matches
+    the sampler modes the reference creates (VulkanTexture.cpp:338-343,
+    RayTracing.cpp:843 sky = Linear+ClampToEdge, scene textures default
+    Linear+Repeat per Texture.h:32-35).  The renderer samples through the
+    quad tables (`sample_quads`) instead.  Returns (...,3).
+    """
+    h, w = img.shape[0], img.shape[1]
+    x = u * w - 0.5
+    y = v * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0 = x0.to(torch.int32)
+    y0 = y0.to(torch.int32)
+    x1 = x0 + 1
+    y1 = y0 + 1
+    if wrap == "repeat":
+        x0, x1 = torch.remainder(x0, w), torch.remainder(x1, w)
+        y0, y1 = torch.remainder(y0, h), torch.remainder(y1, h)
+    else:
+        x0, x1 = torch.clamp(x0, 0, w - 1), torch.clamp(x1, 0, w - 1)
+        y0, y1 = torch.clamp(y0, 0, h - 1), torch.clamp(y1, 0, h - 1)
+    c00 = _bilinear_gather(img, y0, x0)
+    c01 = _bilinear_gather(img, y0, x1)
+    c10 = _bilinear_gather(img, y1, x0)
+    c11 = _bilinear_gather(img, y1, x1)
+    top = c00 * (1.0 - fx) + c01 * fx
+    bot = c10 * (1.0 - fx) + c11 * fx
+    return top * (1.0 - fy) + bot * fy
+
+
 def sample_quads(flat_quads, h, w, u, v, wrap: str, base=0, row_w=None):
     """Bilinear sample via the quad table (ONE row gather per sample).
 
@@ -136,6 +180,52 @@ def sample_texture_quads(tex_quads, tex_size, th: int, tw: int, tex_id, u,
     hw = tex_size[tid.long()]
     return sample_quads(tex_quads, hw[..., 0], hw[..., 1], u, v,
                         wrap="repeat", base=tid * (th * tw), row_w=tw)
+
+
+def sample_texture_array(textures, tex_size, tex_id, u, v):
+    """Sample the bindless texture array (shader:578) for per-lane tex_id,
+    four texel taps.
+
+    textures: (K,TH,TW,3) padded stack; tex_size: (K,2) actual (H,W).
+    Wrap = repeat within each texture's true extent.  tex_id < 0 lanes
+    sample texture 0 (callers mask them out).  The renderer samples
+    through the quad table (`sample_texture_quads`) instead.
+    """
+    k = textures.shape[0]
+    tid = torch.clamp(tex_id, 0, k - 1).long()
+    hw = tex_size[tid]                                   # (...,2)
+    hi = hw[..., 0]
+    wi = hw[..., 1]
+    x = u * wi.float() - 0.5
+    y = v * hi.float() - 0.5
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = (x - x0f)[..., None]
+    fy = (y - y0f)[..., None]
+    x0 = torch.remainder(x0f.to(torch.int32), wi)
+    x1 = torch.remainder(x0f.to(torch.int32) + 1, wi)
+    y0 = torch.remainder(y0f.to(torch.int32), hi)
+    y1 = torch.remainder(y0f.to(torch.int32) + 1, hi)
+    th, tw = textures.shape[1], textures.shape[2]
+    flat = textures.reshape(-1, textures.shape[-1])
+    base = tid * (th * tw)
+    c00 = flat[base + y0 * tw + x0]
+    c01 = flat[base + y0 * tw + x1]
+    c10 = flat[base + y1 * tw + x0]
+    c11 = flat[base + y1 * tw + x1]
+    top = c00 * (1.0 - fx) + c01 * fx
+    bot = c10 * (1.0 - fx) + c11 * fx
+    return top * (1.0 - fy) + bot * fy
+
+
+def sky_color(direction, sky):
+    """Equirect sky sample (shader:216-218) of the (H,W,3) map by four
+    texel taps: uv = (atan2(z,x)/2pi, asin(y)/pi) + 0.5, Linear +
+    ClampToEdge (`sky_color_quads` is the renderer's one-row form)."""
+    u = torch.atan2(direction[..., 2], direction[..., 0]) / TWO_PI + 0.5
+    v = torch.asin(torch.clamp(direction[..., 1], -1.0 + 1e-6,
+                               1.0 - 1e-6)) / PI + 0.5
+    return sample_bilinear(sky, u, v, wrap="clamp")
 
 
 def sky_color_quads(direction, sky_quads, h: int, w: int):
@@ -250,30 +340,47 @@ def _smoothstep(e0, e1, x):
     return t * t * (3.0 - 2.0 * t)
 
 
-def procedural_sun_sky(direction):
+def sun_sky_constants(device) -> torch.Tensor:
+    """(4, 3) f32 rows horizon, zenith, ground, sun direction on
+    `device`, for `procedural_sun_sky`."""
+    return torch.from_numpy(np.stack([_HORIZON, _ZENITH, _GROUND,
+                                      SUN_DIR])).to(device)
+
+
+def procedural_sun_sky(direction, consts=None):
     """The legacy kernel's procedural environment, exactly
     (OldRayTracing.shader:119-136): horizon->zenith gradient over a ground
     color with a pow-500 sun disk along -LightDir = (1,1,1)/sqrt(3); the
     sun only shows where groundToSky saturates (d.y >= 0).
-    direction (...,3) -> (...,3)."""
-    def const(a):
-        return torch.from_numpy(a).to(direction.device)
-
+    direction (...,3) -> (...,3).  consts: `sun_sky_constants` on
+    direction's device, when the caller keeps them (else built here)."""
+    if consts is None:
+        consts = sun_sky_constants(direction.device)
+    horizon, zenith, ground, sun_dir = consts
     dy = direction[..., 1]
     sky_lerp = _smoothstep(0.0, 0.4, dy) ** float(np.float32(0.35))
     ground_to_sky = _smoothstep(-0.01, 0.0, dy)
-    horizon, zenith, ground = const(_HORIZON), const(_ZENITH), const(_GROUND)
     grad = horizon + (zenith - horizon) * sky_lerp[..., None]
-    sun = torch.clamp(direction @ const(SUN_DIR), min=0.0) ** 500.0 * 100.0
+    sun = torch.clamp(direction @ sun_dir, min=0.0) ** 500.0 * 100.0
     col = ground + (grad - ground) * ground_to_sky[..., None]
     return col + (sun * (ground_to_sky >= 1.0))[..., None]
 
 
 def env_radiance(scene, direction):
     """Environment lookup at miss (shader:663-666): the scene's equirect
-    sky map, or the procedural sun/sky when the scene selects it."""
+    sky map, or the procedural sun/sky when the scene selects it (its
+    constants uploaded once per scene)."""
     if scene.env_sun:
-        return procedural_sun_sky(direction)
+        return procedural_sun_sky(direction, scene.derived(
+            "sun_sky", lambda: sun_sky_constants(scene.device)))
     return sky_color_quads(direction, scene.sky_quads,
                            scene.sky.shape[0], scene.sky.shape[1])
+
+
+def sky_tap(scene, d, miss):
+    """env_radiance at the miss lanes; the other lanes are collapsed onto
+    the direction +x (their tap is discarded), a constant made on d's
+    device, with no host data."""
+    x_axis = torch.eye(1, 3, dtype=d.dtype, device=d.device)
+    return env_radiance(scene, torch.where(miss[..., None], d, x_axis))
 

@@ -32,7 +32,7 @@ from . import rng
 from .intersect import (FLT_MAX, TriFeatures, _mm3, cross3, dot3,
                         nearest_sphere, nearest_triangle, normalize,
                         safe_normalize)
-from .shade import (env_radiance, flat_shade, sample_texture_quads, scatter,
+from .shade import (flat_shade, sample_texture_quads, scatter, sky_tap,
                     sphere_uv)
 
 def pixel_grid(width: int, height: int, device="cpu"):
@@ -279,17 +279,6 @@ def replay_payload(scene, rp_table, origin, direction, hr):
     return p, mat_attrs
 
 
-_SKY_DIR = (1.0, 0.0, 0.0)
-
-
-def _sky_tap(scene, d, miss):
-    """env_radiance at the miss lanes; the other lanes are collapsed onto
-    one constant direction (their tap is discarded)."""
-    d_sky = torch.where(miss[:, None], d,
-                        torch.tensor(_SKY_DIR, device=d.device))
-    return env_radiance(scene, d_sky)
-
-
 def shade_bounce(scene, cfg: RenderConfig, draw_env: float,
                  o, d, sd, color, contrib, alive, p, mat_attrs=None,
                  defer_sky: bool = False):
@@ -303,7 +292,7 @@ def shade_bounce(scene, cfg: RenderConfig, draw_env: float,
     mats = scene.materials
     miss_now = alive & ~p["hit"]
     if not defer_sky:
-        sky = _sky_tap(scene, d, miss_now)
+        sky = sky_tap(scene, d, miss_now)
         color = torch.where(miss_now[:, None],
                             color + sky * contrib * draw_env, color)
 
@@ -362,7 +351,9 @@ def camera_rays(cam, cfg: RenderConfig, x, y, frame: int, frame_index: int,
     focus_point, right, up, position = (
         basis if basis is not None else camera_ray_basis(cam, cfg, x, y))
     dev = x.device
-    res = torch.tensor([float(cfg.width), float(cfg.height)], device=dev)
+    # (width, height) by fill kernels: no host data to copy
+    res = torch.full((2,), float(cfg.width), device=dev)
+    res[1:].fill_(float(cfg.height))
     seed = rng.pixel_seed(x, y, cfg.width, frame, frame_index)
     focus_jitter, seed = rng.random_circle_point(seed)
     focus_jitter = focus_jitter / res * cam.defocus_strength.to(dev)
@@ -466,7 +457,7 @@ def render_pixels(scene, cam, x, y, frame_index: int, cfg: RenderConfig,
                 state = _step(replay, remat, i, rows[i], *state)
             color, m_dir, m_ctr, m_mask = state[3], *state[6:]
             # deferred sky: one tap per frame for the recorded miss lanes
-            sky = _sky_tap(scene, m_dir, m_mask)
+            sky = sky_tap(scene, m_dir, m_mask)
             color = torch.where(m_mask[:, None],
                                 color + sky * m_ctr * draw_env, color)
             incoming = incoming + color

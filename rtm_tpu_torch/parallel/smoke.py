@@ -191,7 +191,7 @@ def run_cases(mesh, dev, cases):
         cfg = RenderConfig(width=case["width"], height=case["height"],
                            max_bounces=case["bounces"],
                            draw_environment=True)
-        cam = Camera().spec(cfg.width, cfg.height)
+        cam = Camera().spec(cfg.width, cfg.height, device=dev)
         be = case["backend"]
         reps = case.get("reps", 0)
         kind = case["kind"]
@@ -315,8 +315,8 @@ def main(argv=None) -> int:
                        max_bounces=c["bounces"], draw_environment=True)
     ref = render_dispatch(build_tracer_scene(load_scene(c["scene"]),
                                              device=dev),
-                          Camera().spec(cfg.width, cfg.height), 1, cfg,
-                          backend=c["backend"]).cpu().numpy()
+                          Camera().spec(cfg.width, cfg.height, device=dev), 1,
+                          cfg, backend=c["backend"]).cpu().numpy()
     same = len({o["digest"] for o in outs}) == 1
     img = outs[0]["image"]
     err = float(abs(img - ref).max())

@@ -45,8 +45,12 @@ def render_progressive(scene: TracerScene, cam, cfg: RenderConfig,
     """`frames` accumulation dispatches (frame_index 1..frames), returning
     the converged display image.  A Python loop over frames; each frame's
     radiance is added IN PLACE (`add_`) into one accumulation buffer on the
-    scene's device.  Frames are queued without host synchronisation except
-    the post-pass's one capacity check per frame."""
+    scene's device.  On the fused routes (mxu, trav, megakernel) a frame
+    makes no host wait: the camera row reaches the card by a copy the host
+    does not wait for, the post-pass reads no count on the host, and the
+    scene's index tables are uploaded once (chip_smoke.py [host-waits]).
+    Give `cam` on the scene's device (`Camera.spec(..., device=)`); a spec
+    on the CPU works too."""
     accum = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
                         device=scene.device)
     for fi in range(1, frames + 1):
@@ -112,9 +116,13 @@ class ProgressiveRenderer:
 
     def step_async(self) -> torch.Tensor:
         """Queue one frame without waiting for the device: returns the
-        display image tensor immediately."""
+        display image tensor immediately.  The camera's spec is rebuilt
+        every frame (it may have moved) with one copy to the scene's device
+        that the host does not wait for, so on the fused routes the host
+        can queue frames ahead of the card."""
         self.frame_index = self.frame_index + 1 if self.cfg.accumulate else 1
-        cam_spec = self.camera.spec(self.cfg.width, self.cfg.height)
+        cam_spec = self.camera.spec(self.cfg.width, self.cfg.height,
+                                    device=self.scene.device)
         self.accum, out = accumulate_step(self.scene, cam_spec, self.accum,
                                           self.frame_index, self.cfg,
                                           backend=self.backend)

@@ -87,7 +87,7 @@ def test_compact_matches_jax(sid, seed):
 @pytest.mark.parametrize("sid,seed", [(2, 2), (3, 3)])
 def test_compact_capacity_overflow_takes_dense(sid, seed):
     """cap below the significant-record count: every frame takes the dense
-    branch (lax.cond in rtm_tpu, a host branch here)."""
+    branch (lax.cond in rtm_tpu, a choice on the device here)."""
     j, t = _both("mega_postpass_compact", sid, seed, cap=16)
     np.testing.assert_allclose(t, j, rtol=1e-5, atol=5e-6)
 
