@@ -37,7 +37,9 @@ SLAB_OPS = 25
 def trace(logdir):
     """torch.profiler over the block (CPU, and CUDA when there is a card);
     on exit writes a Chrome trace (chrome://tracing, Perfetto) to
-    `logdir`/trace.json.  Yields the profiler (key_averages() etc.)."""
+    `logdir`/trace.json, where the port's spans (`utils/tracing.py`, host
+    events named `rtm.*`) hold the aten ops and kernels they caused.
+    Yields the profiler (key_averages() etc.)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 

@@ -26,6 +26,7 @@ import torch
 
 from ..config import RenderConfig
 from ..ops.trace_ref import render_dispatch
+from ..utils.tracing import span
 from .params import SceneParams, apply_params, extract_params
 
 
@@ -150,23 +151,30 @@ def loss_and_grad(params: SceneParams, scene, cam, target, frame_index: int,
     if _banded(backend, bands, cfg, soft_tau):
         loss = torch.zeros((), device=target.device)
         total = None
-        for part in _band_sq_sums(leaves, scene, cam, target, frame_index,
-                                  cfg, bands, rebuild_tri_geometry):
-            part = part / float(cfg.num_pixels * 3)
-            gs = _grads(part, leaves)
+        parts = _band_sq_sums(leaves, scene, cam, target, frame_index, cfg,
+                              bands, rebuild_tri_geometry)
+        for _ in range(bands):
+            with span("rtm.fit.forward"):
+                part = next(parts) / float(cfg.num_pixels * 3)
+            with span("rtm.fit.backward"):
+                gs = _grads(part, leaves)
             total = gs if total is None else [a + b
                                               for a, b in zip(total, gs)]
             loss = loss + part.detach()
         return loss, SceneParams(*total)
-    loss = render_loss(leaves, scene, cam, target, frame_index, cfg,
-                       backend, remat, rebuild_tri_geometry, soft_tau, bands)
+    with span("rtm.fit.forward"):
+        loss = render_loss(leaves, scene, cam, target, frame_index, cfg,
+                           backend, remat, rebuild_tri_geometry, soft_tau,
+                           bands)
     if not loss.requires_grad:
         raise ValueError(
             f"loss_and_grad(backend={backend!r}): the route this scene takes "
             "there is a forward-only kernel with no gradient (rtm_tpu's "
             "pallas_call carries no VJP either); use backend='mxu', "
             "'wavefront2', 'xla' or 'pallas'")
-    return loss.detach(), SceneParams(*_grads(loss, leaves))
+    with span("rtm.fit.backward"):
+        grads = _grads(loss, leaves)
+    return loss.detach(), SceneParams(*grads)
 
 
 @dataclass(frozen=True)
@@ -194,17 +202,18 @@ def inverse_render(scene, cam, target, cfg: RenderConfig,
                            betas=(0.9, 0.999), eps=1e-8)
     losses = []
     for i in range(opt_cfg.steps):
-        fi = 1 + (i if opt_cfg.vary_seed else 0)
-        loss, grads = loss_and_grad(params, scene, cam, target, fi, cfg,
-                                    opt_cfg.backend, opt_cfg.remat,
-                                    opt_cfg.rebuild_tri_geometry)
-        gs = grads.tensors()
-        if param_mask is not None:
-            gs = [g * m for g, m in zip(gs, param_mask.tensors())]
-        for p, g in zip(params.tensors(), gs):
-            p.grad = g
-        opt.step()
-        losses.append(float(loss))
+        with span("rtm.fit.step"):
+            fi = 1 + (i if opt_cfg.vary_seed else 0)
+            loss, grads = loss_and_grad(params, scene, cam, target, fi, cfg,
+                                        opt_cfg.backend, opt_cfg.remat,
+                                        opt_cfg.rebuild_tri_geometry)
+            gs = grads.tensors()
+            if param_mask is not None:
+                gs = [g * m for g, m in zip(gs, param_mask.tensors())]
+            for p, g in zip(params.tensors(), gs):
+                p.grad = g
+            opt.step()
+            losses.append(float(loss))
         if callback is not None:
             callback(i, losses[-1], params)
     return params.map(lambda t: t.detach()), losses

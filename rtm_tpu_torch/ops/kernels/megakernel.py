@@ -32,6 +32,7 @@ import torch
 
 from ...config import RenderConfig
 from ...models.camera import CAMERA_ROW, host_to_device
+from ...utils.tracing import span
 from ..intersect import DET_EPS, cross3
 from ..rng import U32_MASK
 from ..shade import PI, TWO_PI, sample_texture_quads, sky_tap
@@ -445,6 +446,7 @@ def _add_sky(color, miss, f: int, n: int, scene, cfg, pt=None):
     return color + torch.where(mmask[:, None], sky_term, 0.0)
 
 
+@span("rtm.postpass")
 def mega_postpass(color, miss, rec, scene, cfg, n: int):
     """The texture/sky reconstruction over the kernels' deferred records:
     the dense form, on every scene.  rtm_tpu takes its compacted form for

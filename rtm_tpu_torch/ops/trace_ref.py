@@ -28,6 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..config import RenderConfig
+from ..utils.tracing import span
 from . import rng
 from .intersect import (FLT_MAX, TriFeatures, _mm3, cross3, dot3,
                         nearest_sphere, nearest_triangle, normalize,
@@ -515,6 +516,7 @@ def resolve_route(scene, cfg: RenderConfig, backend: str) -> str:
     return backend
 
 
+@span("rtm.dispatch")
 def render_dispatch(scene, cam, frame_index: int, cfg: RenderConfig,
                     backend: str = "auto", chunk: int = 512,
                     remat: bool = False):

@@ -25,6 +25,7 @@ from ..config import RenderConfig
 from ..models.camera import Camera
 from ..models.scene import TracerScene, build_tracer_scene
 from ..ops.trace_ref import render_dispatch
+from ..utils.tracing import span
 
 
 def accumulate_step(scene: TracerScene, cam, accum: torch.Tensor,
@@ -114,6 +115,7 @@ class ProgressiveRenderer:
         self.fps = inst if self.fps == 0.0 else 0.9 * self.fps + 0.1 * inst
         return out
 
+    @span("rtm.step_async")
     def step_async(self) -> torch.Tensor:
         """Queue one frame without waiting for the device: returns the
         display image tensor immediately.  The camera's spec is rebuilt
