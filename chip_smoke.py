@@ -144,11 +144,13 @@ Phases (each prints lines starting with its tag, and its seconds):
             post-pass is the dense form in both); then the waits per frame
             of the routes left open (wavefront2, pallas, xla, xla with
             --check-nans' checks), reported
-  [postpass-forms] the post-pass's forms (dense; compact at the static
-            capacity n * bounces; compact at n with the dense form and a
-            choice on the device) on 10 frames' records of scene 3 (mxu)
-            and the textured dragon_grid(16) (megakernel): device ms/frame
-            by CUDA-graph replay and eager, the frames whose significant
+  [postpass-forms] the post-pass's forms (the kernel, csrc/postpass.cu;
+            dense, its plain version; compact at the static capacity n *
+            bounces; compact at n with the dense form and a choice on the
+            device) on 10 frames' records of scene 3 (mxu) and the
+            textured dragon_grid(16) (megakernel): device ms/frame by
+            CUDA-graph replay and eager, the kernel against its byte
+            bound, one launch a call, the frames whose significant
             records exceed n, every form bitwise equal to the dense one
   [shard-band] render_band in one process, no process group: the bands of
             a 1-, 3- and 4-way split against render_dispatch at 512x512,
@@ -612,11 +614,13 @@ def drive(sm: Smoke, tag: str, scene, build_s: float, frames_warm: int,
     scene from build_tracer_scene, built in build_s host seconds; `backend`
     must route to `backend_expected`); every launch count is set to 0
     just before the frames and read just after.  The fused kernels
-    launch once per frame, the sweep kernels once per bounce.  Returns
-    (cfg, image, ms/frame, launches of the expected kernel)."""
+    launch once per frame, the sweep kernels once per bounce; the fused
+    routes' post-pass kernel once per frame.  Returns (cfg, image,
+    ms/frame, launches of the expected kernel)."""
     import torch
     from rtm_tpu_torch import Camera, RenderConfig, render_progressive
     from rtm_tpu_torch.ops.kernels import kernel_wrappers
+    from rtm_tpu_torch.ops.kernels.megakernel import mega_postpass
     from rtm_tpu_torch.ops.trace_ref import resolve_route
 
     kernels = kernel_wrappers()
@@ -635,6 +639,7 @@ def drive(sm: Smoke, tag: str, scene, build_s: float, frames_warm: int,
     torch.cuda.synchronize()
     for k in kernels.values():
         k.launches = 0
+    postpass_before = mega_postpass.launches
     if frames_warm:
         render_progressive(scene, cam, cfg, frames_warm, backend=backend)
     start = torch.cuda.Event(enable_timing=True)
@@ -646,6 +651,7 @@ def drive(sm: Smoke, tag: str, scene, build_s: float, frames_warm: int,
     torch.cuda.synchronize()
     counts = {name: k.launches for name, k in kernels.items()}
     launches = counts[backend_expected]
+    postpass = mega_postpass.launches - postpass_before
     ms = start.elapsed_time(end) / frames_timed
     dispatched = (frames_warm + frames_timed) * per_frame
     grays = cfg.width * cfg.height * cfg.max_frames * cfg.max_bounces \
@@ -658,10 +664,14 @@ def drive(sm: Smoke, tag: str, scene, build_s: float, frames_warm: int,
           f"{cfg.width}x{cfg.height} bounces={cfg.max_bounces} "
           f"frames={dispatched} ms/frame={ms:.4f} "
           f"{metric}={grays:.6f} launches={counts} "
-          f"scene_build_s={build_s:.3f} "
+          f"postpass_launches={postpass} scene_build_s={build_s:.3f} "
           f"image_mean={mean:.6f} finite={finite}", flush=True)
     sm.check(launches == dispatched, f"{tag} launches {launches} != "
              f"{per_frame} per frame dispatched ({dispatched})")
+    fused = backend_expected in ("mxu", "trav", "megakernel")
+    sm.check(postpass == (dispatched if fused else 0),
+             f"{tag} post-pass launches {postpass} for {dispatched} "
+             f"dispatches of {backend_expected}")
     sm.check(sum(counts.values()) == launches,
              f"{tag} other kernels launched: {counts}")
     sm.check(finite and mean > 0.0, f"{tag} image finite={finite} "
@@ -2508,20 +2518,42 @@ def phase_host_waits(sm: Smoke, cases, scene3):
     host_waits_open(scene3, "xla", check_nans=True)
 
 
+def postpass_bytes(scene, cfg, color, miss, rec) -> dict:
+    """The post-pass's bytes: every record, miss and color value read once
+    and the pixels written once ("all records"), and what these records
+    need ("the records' needs": each record's s and texid fields, the uv
+    of a textured one, its sphere flag where the scene has spheres and
+    its third normal component where that flag is set; each frame's miss
+    flag, and the direction and contribution of a valid miss)."""
+    n = color.shape[1]
+    fb, f = cfg.max_frames * cfg.max_bounces, cfg.max_frames
+    rt = rec.view(fb, 8, n)
+    tex = rt[:, 6] > -0.5
+    fields = 4 * fb * n + 2 * int(tex.sum())
+    if scene.num_spheres > 0:
+        fields += int(tex.sum()) + int((tex & (rt[:, 7] > 0.5)).sum())
+    fields += f * n + 6 * int((miss.view(f, 8, n)[:, 6] > 0.5).sum())
+    return {"all records": 4 * (rec.numel() + miss.numel() + 6 * n),
+            "the records' needs": 4 * (fields + 6 * n)}
+
+
 def phase_postpass_forms(sm: Smoke, tag: str, scene, route: str):
     """The post-pass's forms on the records of POSTPASS_FRAMES frames of
     `route`'s kernel (mxu or megakernel) on `scene` at the main path's
-    shape: dense; compact at the static capacity n * bounces; compact at
-    capacity n with the dense form beside it and the device choosing by
-    the frame's count.  Each form's device ms per frame by CUDA-graph
-    replay (POSTPASS_REPLAYS replays of one frame's post-pass, forms in
-    turns dense, b, c, c, b, dense) and eager through torch by CUDA
-    events; the frames whose significant count exceeds n; and every form
-    bitwise equal to the dense form on every frame."""
+    shape: the kernel (`mega_postpass`, csrc/postpass.cu, one launch a
+    call); the dense form as torch ops (its plain version); compact at
+    the static capacity n * bounces; compact at capacity n with the dense
+    form beside it and the device choosing by the frame's count.  Each
+    form's device ms per frame by CUDA-graph replay (POSTPASS_REPLAYS
+    replays of one frame's post-pass, forms in turns k, d, b, c, c, b, d,
+    k) and eager by CUDA events; the kernel against its two byte bounds
+    (`postpass_bytes`, at 3.35 TB/s); the frames whose significant count
+    exceeds n; and every form bitwise equal to the dense form on every
+    frame."""
     import torch
     from rtm_tpu_torch import Camera
     from rtm_tpu_torch.ops.kernels.megakernel import (
-        _pack_camera, build_mega_pack, mega_postpass_compact,
+        _pack_camera, build_mega_pack, mega_postpass, mega_postpass_compact,
         mega_postpass_dense, mega_trace)
     from rtm_tpu_torch.ops.kernels.mxu_kernel import mxu_trace, side_tables
 
@@ -2538,6 +2570,7 @@ def phase_postpass_forms(sm: Smoke, tag: str, scene, route: str):
         recs = [mega_trace(scene, pack, camf, fi, 0, n, cfg)[:3]
                 for fi in range(1, POSTPASS_FRAMES + 1)]
     forms = {
+        "kernel": lambda c, m, r: mega_postpass(c.T, m, r, scene, cfg, n),
         "dense": lambda c, m, r: mega_postpass_dense(c.T, m, r, scene, cfg,
                                                      n),
         "compact_cap_nB": lambda c, m, r: mega_postpass_compact(
@@ -2549,8 +2582,12 @@ def phase_postpass_forms(sm: Smoke, tag: str, scene, route: str):
         rt = rec.view(cfg.max_bounces, 8, n)
         sig = (rt[:, 6] > -0.5) | (rt[:, 0:3].abs().sum(dim=1) > 0.0)
         over += int(sig.sum()) > n
+    before = mega_postpass.launches
     same = all(torch.equal(f(*r), forms["dense"](*r))
                for r in recs for f in forms.values())
+    sm.check(mega_postpass.launches == before + len(recs),
+             f"postpass-forms {tag}: {mega_postpass.launches - before} "
+             f"kernel launches for {len(recs)} calls")
     graphs = {}
     for name, f in forms.items():
         f(*recs[0])
@@ -2561,7 +2598,7 @@ def phase_postpass_forms(sm: Smoke, tag: str, scene, route: str):
         graphs[name] = g
     replay = {name: [] for name in forms}
     eager = {name: [] for name in forms}
-    order = ["dense", "compact_cap_nB", "compact_cap_n_select"]
+    order = ["kernel", "dense", "compact_cap_nB", "compact_cap_n_select"]
     for name in order + order[::-1]:
         replay[name].append(cuda_ms(graphs[name].replay, POSTPASS_REPLAYS))
         eager[name].append(cuda_ms(lambda: [forms[name](*r) for r in recs],
@@ -2572,6 +2609,13 @@ def phase_postpass_forms(sm: Smoke, tag: str, scene, route: str):
               f"ms/frame (graph replay) {replay[name][0]:.4f} / "
               f"{replay[name][1]:.4f}, eager ms/frame (CUDA events) "
               f"{eager[name][0]:.4f} / {eager[name][1]:.4f}", flush=True)
+    kernel_ms = min(replay["kernel"])
+    for what, nbytes in postpass_bytes(scene, cfg, *recs[0]).items():
+        bound_ms = nbytes / 3.35e12 * 1e3
+        print(f"[postpass-forms] {tag}: kernel {kernel_ms:.4f} ms/frame "
+              f"against the bound of {what} {bound_ms:.4f} ms "
+              f"({nbytes / 1e9:.4f} GB at 3.35 TB/s): "
+              f"{100.0 * bound_ms / kernel_ms:.1f}%", flush=True)
     best = min(order, key=lambda k: sum(replay[k]))
     print(f"[postpass-forms] {tag}: frames whose significant records "
           f"exceed n={n}: {over} of {len(recs)}; least device time: {best}; "

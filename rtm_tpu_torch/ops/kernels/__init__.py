@@ -2,8 +2,10 @@
 
 
 def kernel_wrappers():
-    """name -> the wrapper of each CUDA kernel; each counts its launches
-    (`.launches`), which the plain versions on the CPU never touch."""
+    """route name -> the wrapper of the route's tracing kernel; each
+    counts its launches (`.launches`), which the plain versions on the CPU
+    never touch.  The post-pass kernel's wrapper, shared by the mxu, trav
+    and megakernel routes, is megakernel.mega_postpass."""
     from .intersect_kernel import intersect_sweep
     from .megakernel import mega_trace
     from .mxu_kernel import mxu_trace

@@ -7,8 +7,8 @@ dispatch-slot order (`use_block8`, `slot_to_xy`, `pixel_to_slot`,
 (`MegaPack`, `build_mega_pack`), the megakernel (`mega_trace` over
 csrc/mega_trace.cu, its plain version `mega_trace_plain`, the drivers
 `render_rays_megakernel` / `render_megakernel`, and `megakernel_fits`) and
-the post-pass (`mega_postpass`, `mega_postpass_dense`,
-`mega_postpass_compact`) as torch ops.
+the post-pass (`mega_postpass` over csrc/postpass.cu, its plain version
+`mega_postpass_dense`, and `mega_postpass_compact`).
 
 The megakernel runs the whole frames x bounces loop per ray: camera ray
 with both jitters, PCG draws, a sweep over the scene's SAH treelet
@@ -35,7 +35,8 @@ from ...models.camera import CAMERA_ROW, host_to_device
 from ...utils.tracing import span
 from ..intersect import DET_EPS, cross3
 from ..rng import U32_MASK
-from ..shade import PI, TWO_PI, sample_texture_quads, sky_tap
+from ..shade import (PI, TWO_PI, sample_texture_quads, sky_tap,
+                     sun_sky_constants)
 from .build import check_arg, load_kernel_library, ptr
 from .vreg_common import (BIG, _cross, _normalize, _safe_inv_dirs,
                           camera_frame, jittered_ray, scatter_step,
@@ -446,16 +447,135 @@ def _add_sky(color, miss, f: int, n: int, scene, cfg, pt=None):
     return color + torch.where(mmask[:, None], sky_term, 0.0)
 
 
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_POSTPASS_ARGTYPES = [_P, _LL, _LL, _P, _LL, _P, _LL,  # color, miss, rec
+                      _P, _I, _P, _I, _I, _I,          # texture quads
+                      _P, _I, _I, _I, _P, ctypes.c_float,  # environment
+                      _I, _I, _I, _I, _I, _P, _P]      # .. out, stream
+ENV_MAP_F32, ENV_MAP_PACKED, ENV_SUN = 0, 1, 2         # csrc/postpass.cu
+_POSTPASS = {}                     # the launch function and the sun's row
+
+
+def _postpass_launch():
+    """csrc/postpass.cu's launch function, its argument types set, and
+    procedural_sun_sky's constants as its 12 host floats (horizon, zenith,
+    ground, sun direction); made once."""
+    if not _POSTPASS:
+        fn = load_kernel_library("postpass").postpass_dense_launch
+        fn.argtypes = _POSTPASS_ARGTYPES
+        fn.restype = ctypes.c_int
+        sun = sun_sky_constants("cpu").reshape(-1).tolist()
+        _POSTPASS.update(fn=fn, sun=(ctypes.c_float * 12)(*sun))
+    return _POSTPASS["fn"], _POSTPASS["sun"]
+
+
+def _postpass_tables(scene) -> tuple:
+    """(texture quads packed, environment variant) of the scene's tables
+    for the kernel, checked once per scene."""
+    def build():
+        for name, q in (("tex_quads", scene.tex_quads),
+                        ("sky_quads", scene.sky_quads)):
+            width = 4 if q.dtype == torch.int32 else 12
+            if (q.dtype not in (torch.int32, torch.float32) or q.dim() != 2
+                    or q.shape[1] != width or not q.is_contiguous()
+                    or q.data_ptr() % 16):
+                raise ValueError(f"mega_postpass: {name} must be a "
+                                 "contiguous, 16-byte aligned (.., 4) int32 "
+                                 "or (.., 12) float32 quad table")
+        check_arg("mega_postpass", "tex_size", scene.tex_size, torch.int32,
+                  (scene.textures.shape[0], 2), scene.device)
+        env = (ENV_SUN if scene.env_sun else ENV_MAP_PACKED
+               if scene.sky_quads.dtype == torch.int32 else ENV_MAP_F32)
+        return int(scene.tex_quads.dtype == torch.int32), env
+    return scene.derived("postpass_tables", build)
+
+
+def _check_rows(name: str, t, rows: int, n: int, dev) -> None:
+    if (t is None or t.device != dev or t.dtype != torch.float32
+            or t.dim() != 2 or t.shape[0] != rows or t.shape[1] < n):
+        got = "None" if t is None else f"{t.dtype} {tuple(t.shape)} on " \
+            f"{t.device}"
+        raise ValueError(f"mega_postpass: {name} must be a float32 tensor "
+                         f"of shape ({rows}, >= {n}) on {dev}; got {got}")
+
+
+def _check_postpass(color, miss, rec, scene, cfg, n: int):
+    """Raise ValueError unless the post-pass's inputs are f32 on the
+    scene's device: color (n, 3) of any strides, miss (8F, >= n) and, for
+    a textured scene, rec (8FB, >= n)."""
+    dev = color.device
+    if n <= 0:
+        raise ValueError("mega_postpass: need n > 0")
+    if scene.device != dev:
+        raise ValueError(f"mega_postpass: inputs on {dev}, scene on "
+                         f"{scene.device}")
+    if color.dtype != torch.float32 or color.shape != (n, 3):
+        raise ValueError(f"mega_postpass: color must be a float32 tensor of "
+                         f"shape ({n}, 3); got {color.dtype} "
+                         f"{tuple(color.shape)}")
+    _check_rows("miss", miss, 8 * cfg.max_frames, n, dev)
+    if scene.any_textured:
+        _check_rows("rec", rec, 8 * cfg.max_frames * cfg.max_bounces, n, dev)
+
+
 @span("rtm.postpass")
 def mega_postpass(color, miss, rec, scene, cfg, n: int):
-    """The texture/sky reconstruction over the kernels' deferred records:
-    the dense form, on every scene.  rtm_tpu takes its compacted form for
-    textured multi-bounce scenes unless `RTM_DENSE_POSTPASS=1`; on the
-    H100 the dense form takes the least device time of the forms that
-    read no count on the host (chip_smoke.py [postpass-forms], PERF.md),
-    so the port's post-pass is the one that switch forces in rtm_tpu, and
-    it has no switch.  The compacted form gives the same bits."""
-    return mega_postpass_dense(color, miss, rec, scene, cfg, n)
+    """The texture/sky reconstruction over the kernels' deferred records,
+    in the dense form on every scene: color (n, 3) of any strides (a
+    tracing kernel's (3, n) rows, transposed), miss (8F, >= n), rec (8FB,
+    >= n) or None for an untextured scene; returns (n, 3).
+
+    CPU tensors go to `mega_postpass_dense`, its plain version.  CUDA
+    tensors launch csrc/postpass.cu (built at first use) once and raise on
+    arguments it does not take and on any launch error;
+    `mega_postpass.launches` counts the launches.  The kernel replaces no
+    TPU kernel (rtm_tpu's post-pass is XLA): the dense form as torch ops
+    re-read (B, n) temporaries in dozens of launches a frame, ~24 ms of a
+    1280x720, 4-sample, 8-bounce dispatch on the H100 and most of an
+    interactive frame's host work.  Bytes bound it, each slot's records,
+    miss rows and color read once and its pixel written once (1.08 GB
+    that dispatch, 0.32 ms at 3.35 TB/s); one thread a slot, coalesced
+    field rows, one quad-row load a texture or sky tap, the plain form's
+    operations in its order (csrc/postpass.cu says more).
+
+    rtm_tpu takes its compacted form for textured multi-bounce scenes
+    unless `RTM_DENSE_POSTPASS=1`; the port's post-pass is the one that
+    switch forces, and it has no switch.  The compacted form gives the
+    same bits."""
+    dev = color.device
+    _check_postpass(color, miss, rec, scene, cfg, n)
+    if dev.type == "cpu":
+        return mega_postpass_dense(color, miss, rec, scene, cfg, n)
+    if dev.type != "cuda":
+        raise ValueError(f"mega_postpass: unsupported device {dev}")
+    textured = scene.any_textured
+    if miss.stride(1) != 1 or (textured and rec.stride(1) != 1):
+        raise ValueError("mega_postpass: miss and rec need contiguous rows")
+    tex_packed, env = _postpass_tables(scene)
+    fn, sun = _postpass_launch()
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(color.data_ptr(), color.stride(0), color.stride(1),
+                 miss.data_ptr(), miss.stride(0),
+                 rec.data_ptr() if textured else None,
+                 rec.stride(0) if textured else 0,
+                 scene.tex_quads.data_ptr(), tex_packed,
+                 scene.tex_size.data_ptr(), *scene.textures.shape[:3],
+                 scene.sky_quads.data_ptr(), env, *scene.sky.shape[:2], sun,
+                 1.0 if cfg.draw_environment else 0.0, int(textured),
+                 int(scene.num_spheres > 0), n, cfg.max_frames,
+                 cfg.max_bounces, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"mega_postpass: kernel launch failed with CUDA "
+                           f"error {err}")
+    mega_postpass.launches += 1
+    return out
+
+
+mega_postpass.launches = 0
 
 
 def _dense_frame(rt, color, scene, n: int, have_sph: bool):
@@ -902,8 +1022,6 @@ def mega_trace_plain(scene, pack: MegaPack, camf, frame_index: int,
 # The megakernel: kernel wrapper and drivers
 # ---------------------------------------------------------------------------
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 _ARGTYPES = [_P, ctypes.c_uint32, _I, _I, _I, _I, _I, _I, _I,  # .. ray_tile
              _P, _P, _P, _P, _P, _I, _I, _I,       # cluster tables, flags
              _P, _I,                               # sphere table

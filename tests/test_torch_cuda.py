@@ -18,7 +18,10 @@ in both, and there the pair pass (`mxu_nearest`) must agree bitwise.  On
 the lanes whose records all agree, both sides round op by op alike (the
 kernels are built with --fmad=false), so color / miss / rec agree to 1e-3
 absolute (the transcendentals are the only operations that may differ in
-the last place).
+the last place).  The post-pass kernel (csrc/postpass.cu) repeats the
+dense post-pass's operations in order and is bitwise the plain version run
+by PyTorch on the card, but for the procedural sun: there the plain
+version's dot product goes to cuBLAS (rtol 2e-4, below).
 """
 from __future__ import annotations
 
@@ -35,6 +38,8 @@ from rtm_tpu_torch.ops.kernels import trav_kernel as ttk
 from rtm_tpu_torch.ops.kernels.megakernel import _pack_camera
 from torch_mxu_cases import (N_TRIS_EDGES, frac_rays, int_rays, int_tables,
                              model_key, nearest_culled, table_scene)
+from torch_postpass_cases import VARIANTS as POSTPASS_VARIANTS
+from torch_postpass_cases import records, variant_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -1077,3 +1082,85 @@ def test_mega_prefilter_edges_bitwise(cuda, edge):
         assert bool(torch.isnan(p[1]).any())
     if edge != "no_box":
         assert int(k[3].passes.sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# The dense post-pass kernel (csrc/postpass.cu) against mega_postpass_dense
+# run by PyTorch on the card
+# ---------------------------------------------------------------------------
+
+POSTPASS_SUN_RTOL = 2e-4
+# name: (slots, frames, bounces, extra columns past n in miss and rec)
+POSTPASS_SHAPES = {
+    "one_slot": (1, 1, 1, 0),
+    "f4_b8": (1000, 4, 8, 0),
+    "f3_b3_wide_rows": (700, 3, 3, 37),
+    "f1_b8": (513, 1, 8, 0),
+}
+
+
+def _postpass_pair(scene, color, miss, rec, cfg, n):
+    """(kernel, plain) on the same inputs; the kernel launched once."""
+    from rtm_tpu_torch.ops.kernels import megakernel as mk
+
+    before = mk.mega_postpass.launches
+    got = mk.mega_postpass(color, miss, rec, scene, cfg, n)
+    assert mk.mega_postpass.launches == before + 1
+    want = mk.mega_postpass_dense(color, miss, rec, scene, cfg, n)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("draw", [True, False], ids=["env", "no_env"])
+@pytest.mark.parametrize("shape", list(POSTPASS_SHAPES))
+@pytest.mark.parametrize("variant", list(POSTPASS_VARIANTS))
+def test_postpass_kernel_matches_plain(cuda, variant, shape, draw):
+    n, frames, bounces, pad = POSTPASS_SHAPES[shape]
+    st = variant_scene(variant, cuda)
+    color, miss, rec = (torch.from_numpy(a).to(cuda) for a in records(
+        n + frames * 10 + bounces, n, bounces, frames, pad, near_sun=0.2))
+    color = color.T.contiguous().T        # a tracing kernel's (3, n) rows
+    cfg = rtm_tpu_torch.RenderConfig(width=n, height=1, max_bounces=bounces,
+                                     max_frames=frames,
+                                     draw_environment=draw)
+    got, want = _postpass_pair(st, color, miss,
+                               rec if st.any_textured else None, cfg, n)
+    assert got.shape == (n, 3) and bool(torch.isfinite(got).all())
+    if st.env_sun and draw:
+        # the plain version's sun dot product is cuBLAS's mv, summed in
+        # another order than the kernel's, and pow(., 500) * 100 takes its
+        # last-place error 500-fold: up to 5.9e-5 relative on an H100
+        torch.testing.assert_close(got, want, rtol=POSTPASS_SUN_RTOL,
+                                   atol=1e-6)
+    else:
+        torch.testing.assert_close(got, want, rtol=0.0, atol=0.0)
+
+
+@pytest.mark.parametrize("sid", [2, 3])
+def test_postpass_kernel_on_traced_records(cuda, sid):
+    """The kernel against the plain version on the mxu kernel's records of
+    a 4-sample, 8-bounce 64x64 dispatch."""
+    st = _scene(sid, cuda)
+    cfg = rtm_tpu_torch.RenderConfig(width=64, height=64, max_bounces=8,
+                                     max_frames=4, draw_environment=True)
+    camf = _pack_camera(rtm_tpu_torch.Camera().spec(64, 64), cuda)
+    n = 64 * 64
+    color, miss, rec, _ = tmk.mxu_trace(st, tmk.side_tables(st), camf, 3, 0,
+                                        n, cfg)
+    got, want = _postpass_pair(st, color.T, miss, rec, cfg, n)
+    torch.testing.assert_close(got, want, rtol=0.0, atol=0.0)
+
+
+def test_postpass_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from rtm_tpu_torch.ops.kernels import megakernel as mk
+
+    st = variant_scene("tex", cuda)
+    color, miss, rec = (torch.from_numpy(a).to(cuda) for a in records(5))
+    cfg = rtm_tpu_torch.RenderConfig(width=32, height=16, max_bounces=4,
+                                     max_frames=2)
+    n = color.shape[0]
+    for args in ((color, miss.T.contiguous().T, rec),     # strided rows
+                 (color, miss, rec.cpu()),
+                 (color.half(), miss, rec)):
+        with pytest.raises(ValueError, match="mega_postpass"):
+            mk.mega_postpass(*args, st, cfg, n)

@@ -1,13 +1,16 @@
 """rtm_tpu_torch's texture/sky post-pass vs rtm_tpu's, on numpy-made
 kernel records.
 
-The records follow the kernels' layout (rows per frame and bounce:
-s_rgb, uv or sphere normal, texid or -1, sphere flag; per frame: miss
-direction, contribution, valid).  The dense forms compute the same sums in
-the same order; the port's compact form sums each ray in that order too,
-rtm_tpu's by a segmented scan.  They differ by that summation order and by
-the ulps of atan2 / asin on sphere records, which move a bilinear texture
-tap by a few 1e-6 (rtol 1e-5 with atol 5e-6).
+The records (tests/torch_postpass_cases.py) follow the kernels' layout
+(rows per frame and bounce: s_rgb, uv or sphere normal, texid or -1,
+sphere flag; per frame: miss direction, contribution, valid).  The dense
+forms compute the same sums in the same order; the port's compact form
+sums each ray in that order too, rtm_tpu's by a segmented scan.  They
+differ by that summation order and by the ulps of atan2 / asin on sphere
+records, which move a bilinear texture tap by a few 1e-6 (rtol 1e-5 with
+atol 5e-6).  `mega_postpass` on the CPU is the port's dense form itself;
+its CUDA kernel is held to that form on the card in
+tests/test_torch_cuda.py, which imports no JAX.
 """
 from __future__ import annotations
 
@@ -21,38 +24,8 @@ import rtm_tpu_torch
 from rtm_tpu.ops.pallas import megakernel as jmk
 from rtm_tpu_torch.ops.kernels import megakernel as tmk
 from test_torch_parity import carry, jax_scene
-
-N = 512
-BOUNCES = 4
-FRAMES = 2
-
-
-def _records(seed: int, n=N, bounces=BOUNCES, frames=FRAMES):
-    """(color (n,3), miss (8F,n), rec (8FB,n)) like the kernels emit."""
-    rng = np.random.default_rng(seed)
-    rec = np.zeros((frames * bounces, 8, n), np.float32)
-    emissive = rng.random((frames * bounces, n)) < 0.25
-    rec[:, 0:3] = rng.uniform(0, 2, (frames * bounces, 3, n)) \
-        * emissive[:, None]
-    textured = rng.random((frames * bounces, n)) < 0.3
-    sphere = textured & (rng.random((frames * bounces, n)) < 0.4)
-    nrm = rng.normal(size=(frames * bounces, 3, n))
-    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-    uv = rng.uniform(-3, 10, (frames * bounces, 2, n))
-    rec[:, 3:5] = np.where(sphere[:, None], nrm[:, :2], uv)
-    rec[:, 5] = np.where(sphere, nrm[:, 2], 0.0)
-    rec[:, 6] = np.where(textured, 0.0, -1.0)
-    rec[:, 7] = sphere
-    miss = np.zeros((frames, 8, n), np.float32)
-    valid = rng.random((frames, n)) < 0.6
-    d = rng.normal(size=(frames, 3, n))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    miss[:, 0:3] = d * valid[:, None]
-    miss[:, 3:6] = rng.uniform(0, 1, (frames, 3, n))
-    miss[:, 6] = valid
-    color = rng.uniform(0, 1, (n, 3)).astype(np.float32)
-    return (color, miss.reshape(8 * frames, n),
-            rec.reshape(8 * frames * bounces, n))
+from torch_postpass_cases import (BOUNCES, FRAMES, VARIANTS, N, records,
+                                  variant_scene)
 
 
 def _cfgs(bounces=BOUNCES, frames=FRAMES):
@@ -64,7 +37,7 @@ def _cfgs(bounces=BOUNCES, frames=FRAMES):
 def _both(fn_name, sid, seed, **kw):
     sj = jax_scene(sid)
     st = carry(sj)
-    color, miss, rec = _records(seed)
+    color, miss, rec = records(seed)
     if not sj.any_textured:
         rec = None
     jc, tc = _cfgs()
@@ -110,7 +83,7 @@ def test_compact_equals_dense_in_the_port():
     depend on which branch a dispatch (or a band of it) takes."""
     st = rtm_tpu_torch.build_tracer_scene(rtm_tpu_torch.load_scene(2),
                                           device="cpu")
-    color, miss, rec = (torch.from_numpy(a) for a in _records(9))
+    color, miss, rec = (torch.from_numpy(a) for a in records(9))
     _, cfg = _cfgs()
     a = tmk.mega_postpass_compact(color, miss, rec, st, cfg, N)
     b = tmk.mega_postpass_dense(color, miss, rec, st, cfg, N)
@@ -129,7 +102,7 @@ def _segment_records(seed: int, sparse: bool, n=N, frames=FRAMES):
     of n; else about half the slots are significant."""
     rng = np.random.default_rng(seed)
     b = SEG_BOUNCES
-    color, miss, _ = _records(seed, n, b, frames)
+    color, miss, _ = records(seed, n, b, frames)
     rec = np.zeros((frames, b, 8, n), np.float32)
     rec[:, :, 6] = -1.0
     for f in range(frames):
@@ -194,7 +167,60 @@ def test_compact_segments_match_jax(sid, seed, sparse):
 def test_compact_rejects_untextured_scene():
     st = rtm_tpu_torch.build_tracer_scene(rtm_tpu_torch.load_scene(1),
                                           device="cpu")
-    color, miss, rec = (torch.from_numpy(a) for a in _records(11))
+    color, miss, rec = (torch.from_numpy(a) for a in records(11))
     _, cfg = _cfgs()
     with pytest.raises(ValueError, match="textured"):
         tmk.mega_postpass_compact(color, miss, rec, st, cfg, N)
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_wrapper_takes_the_plain_form_on_cpu(variant):
+    """On the CPU `mega_postpass` is `mega_postpass_dense`, bitwise, from
+    a tracing kernel's transposed (3, n) color and rows wider than n, and
+    counts no kernel launch."""
+    st = variant_scene(variant, "cpu")
+    color, miss, rec = (torch.from_numpy(a) for a in
+                        records(20, pad=7, near_sun=0.2))
+    color_t = color.T.contiguous().T                   # (n, 3), strides (1, n)
+    _, cfg = _cfgs()
+    before = tmk.mega_postpass.launches
+    got = tmk.mega_postpass(color_t, miss, rec, st, cfg, N)
+    want = tmk.mega_postpass_dense(color, miss, rec, st, cfg, N)
+    assert tmk.mega_postpass.launches == before
+    assert got.shape == (N, 3) and torch.isfinite(got).all()
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def _bad_inputs(case, color, miss, rec):
+    n = N
+    if case == "color_dtype":
+        color = color.double()
+    elif case == "color_shape":
+        color = color[:N - 1]
+    elif case == "miss_rows":
+        miss = miss[:-1]
+    elif case == "miss_narrow":
+        miss = miss[:, :N - 1]
+    elif case == "rec_missing":
+        rec = None
+    elif case == "rec_dtype":
+        rec = rec.to(torch.float64)
+    elif case == "scene_device":
+        color, miss, rec = (t.to("meta") for t in (color, miss, rec))
+    elif case == "miss_device":
+        miss = miss.to("meta")
+    elif case == "n_zero":
+        n = 0
+    return color, miss, rec, n
+
+
+@pytest.mark.parametrize("case", [
+    "color_dtype", "color_shape", "miss_rows", "miss_narrow", "rec_missing",
+    "rec_dtype", "scene_device", "miss_device", "n_zero"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(case):
+    st = variant_scene("tex", "cpu")
+    color, miss, rec, n = _bad_inputs(
+        case, *(torch.from_numpy(a) for a in records(21)))
+    _, cfg = _cfgs()
+    with pytest.raises(ValueError, match="mega_postpass"):
+        tmk.mega_postpass(color, miss, rec, st, cfg, n)
