@@ -9,16 +9,23 @@
   4 — dev platform: the dragon alone;
   5 — empty scene (the combo's case 5 hits the switch default).
 
+Beside them `one_weekend(seed)`, the final scene of Peter Shirley's "Ray
+Tracing in One Weekend" (v4, section 14.1 "A Final Render", main.cc), and
+its camera `one_weekend_camera()`.
+
 Every scene gets the evening_road sky map when assets are present
 (RayTracing.cpp:843); otherwise a procedural stand-in is used so tests run
 hermetically.  Material ctor order matches the reference aggregate init.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
 from ..io.assets import asset_path
 from ..io.image import load_hdr_ldr, load_texture
+from .camera import Camera
 from .material import Material
 from .mesh import Mesh, MeshInstance, Triangle
 from .scene import Scene, SphereDef
@@ -194,3 +201,96 @@ def dragon_grid(k: int = 6) -> Scene:
     # on scene geometry, not only the sky
     s.add_sphere(SphereDef((0.0, 6.0, -7.0), 1.5, 1))
     return s
+
+
+# "Ray Tracing in One Weekend" (v4): the final render's image width 1200
+# at 16:9, and its max_depth
+ONE_WEEKEND_SIZE = (1200, 675)
+ONE_WEEKEND_BOUNCES = 50
+
+
+def _book_sky(h: int = 128, w: int = 256) -> np.ndarray:
+    """The book's sky, white straight down to (0.5, 0.7, 1.0) straight up,
+    as an 8-bit equirect map linear in the row (the map's rows run from
+    straight down to straight up; the book's blend is linear in y)."""
+    v = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    sky = np.zeros((h, w, 3), np.float32)
+    for c, (bottom, change) in enumerate(((1.0, -0.5), (1.0, -0.3),
+                                          (1.0, 0.0))):
+        sky[..., c] = bottom + change * v
+    return np.round(np.clip(sky, 0, 1) * 255.0) / np.float32(255.0)
+
+
+def _lambertian(albedo) -> Material:
+    """Roughness 0: the fully diffuse end of the material model."""
+    return Material(tuple(map(float, albedo)), (1.0, 1.0, 1.0), 0.0, 0.0,
+                    0.0, 1.0, -1)
+
+
+def _metal(albedo, fuzz: float) -> Material:
+    """Roughness 1 (fully specular); the reflection is perturbed by a draw
+    in the cube of half-side 1 - metallic, so metallic = 1 - fuzz."""
+    return Material(tuple(map(float, albedo)), (1.0, 1.0, 1.0), 1.0,
+                    1.0 - fuzz, 0.0, 1.0, -1)
+
+
+def _dielectric(ior: float) -> Material:
+    return Material((1.0, 1.0, 1.0), (1.0, 1.0, 1.0), 0.0, 0.0, 0.0, ior,
+                    -1)
+
+
+def one_weekend(seed: int) -> Scene:
+    """The final scene of "Ray Tracing in One Weekend" (v4, section 14.1,
+    main.cc): a ground sphere of radius 1000, the 22 x 22 grid of
+    radius-0.2 spheres with random materials, and three spheres of radius
+    1 (glass, diffuse, polished metal), one material per sphere, under the
+    book's sky gradient.
+
+    The grid is drawn by the book's rules and in its order: per cell
+    `choose_mat`, then the x and z offsets, then the material's draws
+    (diffuse: albedo = random3 * random3; metal: albedo in [0.5, 1)^3,
+    then fuzz in [0, 0.5); glass: none), a sphere kept only where its
+    centre lies farther than 0.9 from (4, 0.2, 0).  The draws come from
+    NumPy's PCG64 at `seed`, not from the book's generator."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    s = Scene(sky=_book_sky())
+
+    def sphere(center, radius, material):
+        s.add_sphere(SphereDef(center, radius, s.add_material(material)))
+
+    sphere((0.0, -1000.0, 0.0), 1000.0, _lambertian((0.5, 0.5, 0.5)))
+    for a in range(-11, 11):
+        for b in range(-11, 11):
+            choose_mat = rng.random()
+            center = (a + 0.9 * rng.random(), 0.2, b + 0.9 * rng.random())
+            if math.hypot(center[0] - 4.0, center[2]) <= 0.9:
+                continue
+            if choose_mat < 0.8:
+                material = _lambertian(rng.random(3) * rng.random(3))
+            elif choose_mat < 0.95:
+                albedo = 0.5 + 0.5 * rng.random(3)
+                material = _metal(albedo, 0.5 * rng.random())
+            else:
+                material = _dielectric(1.5)
+            sphere(center, 0.2, material)
+    sphere((0.0, 1.0, 0.0), 1.0, _dielectric(1.5))
+    sphere((-4.0, 1.0, 0.0), 1.0, _lambertian((0.4, 0.2, 0.1)))
+    sphere((4.0, 1.0, 0.0), 1.0, _metal((0.7, 0.6, 0.5), 0.0))
+    return s
+
+
+def one_weekend_camera() -> Camera:
+    """The book's camera: vfov 20, from (13, 2, 3) towards the origin,
+    focus distance 10, defocus angle 0.6 degrees.  The book's thin lens
+    (a disc of radius 10 * tan(0.3 degrees)) becomes the model's
+    screen-space defocus, an ellipse of half-axes defocus / width and
+    defocus / height around the eye: defocus_strength is set so that the
+    ellipse has the disc's area at the book's 1200 x 675.  The far plane
+    of 1 puts the focus point at focus_distance along the view."""
+    w, h = ONE_WEEKEND_SIZE
+    radius = 10.0 * math.tan(math.radians(0.6 / 2.0))
+    eye = np.array([13.0, 2.0, 3.0])
+    return Camera(fov=20.0, near=0.1, far=1.0, position=eye,
+                  direction=-eye, focus_distance=10.0,
+                  defocus_strength=radius * math.sqrt(w * h),
+                  blur_strength=0.0)

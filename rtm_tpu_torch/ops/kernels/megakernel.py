@@ -206,6 +206,7 @@ def _pack_index(slices, dev) -> _PackIndex:
         padded_to_real=up(p2r.astype(np.int32)))
 
 
+@span("rtm.mega.pack")
 def build_mega_pack(scene) -> MegaPack:
     """Pack the scene into the megakernel's and the sweep's tables, on the
     scene's device and without autograd (this path is forward-only, as in
@@ -1028,6 +1029,7 @@ _ARGTYPES = [_P, ctypes.c_uint32, _I, _I, _I, _I, _I, _I, _I,  # .. ray_tile
              _P, _P, _P, _P, _P, _P]               # outputs, stream
 
 
+@span("rtm.mega.trace")
 def mega_trace(scene, pack: MegaPack, camf, frame_index: int,
                pixel_offset: int, n_rays: int, cfg: RenderConfig,
                ray_tile: int = DEFAULT_RAY_TILE, cull: bool = True,

@@ -3,7 +3,9 @@ timeline.
 
 Under a CPU `torch.profiler` a progressive frame through the mxu route's
 plain version gives `rtm.step_async` around `rtm.dispatch` around
-`rtm.postpass`, and each `inverse_render` step one `rtm.fit.step` around
+`rtm.postpass` (on the megakernel route `rtm.mega.pack` and
+`rtm.mega.trace` beside the post-pass inside the dispatch), and each
+`inverse_render` step one `rtm.fit.step` around
 one `rtm.fit.forward` and one `rtm.fit.backward`, the caller's callback
 outside it.  With no profiler running a span calls nothing in torch, and
 frames and losses are bitwise the same with the profiler on or off.
@@ -78,6 +80,23 @@ def test_step_async_nests_dispatch_and_postpass(scene):
                if e.name in ("rtm.dispatch", "rtm.postpass")}
     assert parents == {"rtm.dispatch": "rtm.step_async",
                        "rtm.postpass": "rtm.dispatch"}
+
+
+def test_megakernel_dispatch_nests_pack_and_trace(scene):
+    pr = ProgressiveRenderer(scene, cfg=CFG, backend="megakernel")
+    pr.step_async()
+    with cpu_profile() as prof:
+        pr.step_async()
+    got = spans_of(prof)
+    assert [s[0] for s in got] == ["rtm.step_async", "rtm.dispatch",
+                                   "rtm.mega.pack", "rtm.mega.trace",
+                                   "rtm.postpass"]
+    dispatch = got[1]
+    assert all(inside(s, dispatch) for s in got[2:])
+    parents = {e.name: e.cpu_parent.name for e in prof.events()
+               if e.name.startswith("rtm.mega.")}
+    assert parents == {"rtm.mega.pack": "rtm.dispatch",
+                       "rtm.mega.trace": "rtm.dispatch"}
 
 
 def test_fit_step_holds_forward_and_backward_not_the_callback(scene):
