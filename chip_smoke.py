@@ -95,9 +95,26 @@ Phases (each prints lines starting with its tag, and its seconds):
   [grad]    loss_and_grad on scene 3 through "mxu" (record replay,
             remat=False) and "wavefront2" (bands=4) at 64x64 against the
             "xla" route (rtol 1e-3, atol 1e-5), then at 512x512, 8 bounces:
-            forward-loss ms, fwd+bwd ms, peak device memory, finite grads
+            forward-loss ms, fwd+bwd ms, peak device memory, finite grads,
+            row_grad launched once a bounce by mxu and never by wavefront2
   [inverse] inverse_render on scene 3 at 512x512 through "mxu": 5 Adam steps
-            from a perturbed wall albedo (albedo only); the loss must fall
+            from a perturbed wall albedo (albedo only); the loss must fall;
+            row_grad launched once a step and bounce
+  [replay-bwd] the replay gather's backward (csrc/row_grad.cu) at the fit
+            cell's shape: the gradient rows and row indices of each of
+            the 8 bounces of one loss_and_grad through mxu replay (scene
+            3, 512x512, remat=False), as the backward hands them over;
+            the kernel's device ms per call by CUDA-graph replay (and
+            eager, with the wrapper's host work) against its byte bound,
+            the plain version's ms, and index_put_(accumulate=
+            True)'s ms, PyTorch's backward of the gather (the yardstick,
+            library_ms: the port does not call it); the kernel bitwise its
+            plain version and itself on every bounce; the row_grad
+            launches of that loss_and_grad (max_frames x max_bounces);
+            a library-only deterministic form, the one-hot product, per
+            call and in whole loss_and_grad steps (turns A B B A) against
+            the kernel; then the same per call at the mxu tables' limit of
+            2,176 rows (several row tiles) on drawn indices
   [soft]    render_loss(soft_tau=0.01) through "pallas" (the intersect
             kernel): at 64x64 against "xla" with the same soft_tau by
             [grad]'s tolerances, then loss_and_grad at 512x512, 8
@@ -1371,20 +1388,25 @@ def phase_grad(sm: Smoke, scene, target_full):
         fwd_ms = (time.perf_counter() - t0) * 1e3
         fwd_mib = torch.cuda.max_memory_allocated() / 2 ** 20
         torch.cuda.reset_peak_memory_stats()
+        zero_launches()
         t0 = time.perf_counter()
         loss, g = loss_and_grad(params, scene, cam, target_full, 1, cfg,
                                 backend=route, remat=False, **kw)
         torch.cuda.synchronize()
         fb_ms = (time.perf_counter() - t0) * 1e3
+        launches = path_launches()
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
         finite = all(bool(torch.isfinite(t).all()) for t in g.tensors())
+        want = replay_bwd_launches(cfg, 1) if route == "mxu" else 0
         print(f"[grad] {route} {kw} scene3 {MAIN_RES}x{MAIN_RES} "
               f"{MAIN_BOUNCES} bounces: loss={float(loss):.6f} "
               f"forward_loss_ms={fwd_ms:.2f} (peak {fwd_mib:.0f} MiB) "
               f"fwd+bwd_ms={fb_ms:.2f} peak_mib={peak:.0f} "
-              f"grads_finite={finite}", flush=True)
+              f"grads_finite={finite} launches={launches}", flush=True)
         sm.check(finite and bool(torch.isfinite(loss)),
                  f"grad {route} not finite")
+        sm.check(launches["row_grad"] == want, f"grad {route}: "
+                 f"{launches['row_grad']} row_grad launches, not {want}")
 
 
 def phase_inverse(sm: Smoke, scene):
@@ -1410,18 +1432,23 @@ def phase_inverse(sm: Smoke, scene):
     opt = InverseRenderConfig(steps=INVERSE_STEPS, learning_rate=4e-2,
                               remat=False, vary_seed=False, backend="mxu")
     torch.cuda.synchronize()
+    zero_launches()
     t0 = time.perf_counter()
     fit, losses = inverse_render(scene, cam, target, cfg, opt,
                                  init_params=p0, param_mask=mask)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
+    launches = path_launches()
+    want = replay_bwd_launches(cfg, INVERSE_STEPS)
     print(f"[inverse] scene3 {MAIN_RES}x{MAIN_RES} {MAIN_BOUNCES} bounces "
           f"mxu: {INVERSE_STEPS} Adam steps in {sec:.2f} s, losses="
           + ",".join(f"{v:.6e}" for v in losses)
-          + f" albedo[2]={[round(float(v), 4) for v in fit.albedo[2]]}",
-          flush=True)
+          + f" albedo[2]={[round(float(v), 4) for v in fit.albedo[2]]}"
+          f" launches={launches}", flush=True)
     sm.check(all(v == v for v in losses) and losses[-1] < losses[0],
              f"inverse losses did not fall: {losses}")
+    sm.check(launches["row_grad"] == want, f"inverse: "
+             f"{launches['row_grad']} row_grad launches, not {want}")
 
 
 def mega_bound(scene, pack, cfg, stats, n: int):
@@ -1835,16 +1862,23 @@ def phase_soft(sm: Smoke, scene, target_full):
     report_profile(prof, "soft-profile", 1, prof_ms, fb_ms, unit="step")
 
 
-def path_launches():
+def counted_kernels():
+    """Every wrapper whose launches the phases count: the routes' tracing
+    kernels, and `row_grad`, the replay gather's backward (a
+    loss_and_grad through mxu replay launches it once a frame and
+    bounce; every other path never)."""
     from rtm_tpu_torch.ops.kernels import kernel_wrappers
+    from rtm_tpu_torch.ops.kernels.row_grad import row_grad
 
-    return {name: k.launches for name, k in kernel_wrappers().items()}
+    return {**kernel_wrappers(), "row_grad": row_grad}
+
+
+def path_launches():
+    return {name: k.launches for name, k in counted_kernels().items()}
 
 
 def zero_launches():
-    from rtm_tpu_torch.ops.kernels import kernel_wrappers
-
-    for k in kernel_wrappers().values():
+    for k in counted_kernels().values():
         k.launches = 0
 
 
@@ -2270,7 +2304,7 @@ def phase_bench_backends(sm: Smoke):
                                  RTM_BENCH_REPEATS=repeats)
     frames = 1 + max(2, repeats // 2) + blocks * repeats
     want = {"mxu": frames, "megakernel": frames, "trav": frames,
-            "wavefront2": frames * MAIN_BOUNCES, "pallas": 0}
+            "wavefront2": frames * MAIN_BOUNCES, "pallas": 0, "row_grad": 0}
     sm.check(launches == want, f"bench-backends launches {launches} != "
              f"{want}")
     sm.check([(r["backend"], r["route"]) for r in rows] == [
@@ -2278,14 +2312,240 @@ def phase_bench_backends(sm: Smoke):
         f"bench-backends routes {[r.get('route') for r in rows]}")
 
 
+def replay_fit_step(scene):
+    """(cfg, step): step() is one loss_and_grad through mxu replay at the
+    main path's shape (the fit cell's: scene 3, 512x512, 8 bounces, one
+    sample, remat=False)."""
+    import torch
+    from rtm_tpu_torch import Camera, RenderConfig
+    from rtm_tpu_torch.diff import extract_params, loss_and_grad
+
+    cfg = RenderConfig(width=MAIN_RES, height=MAIN_RES,
+                       max_bounces=MAIN_BOUNCES, draw_environment=True)
+    cam = Camera().spec(MAIN_RES, MAIN_RES, device=scene.device)
+    target = torch.full((MAIN_RES, MAIN_RES, 3), 0.3, device=scene.device)
+    params = extract_params(scene)
+
+    def step():
+        return loss_and_grad(params, scene, cam, target, 1, cfg,
+                             backend="mxu", remat=False)
+    return cfg, step
+
+
+def replay_bwd_inputs(scene):
+    """([(grad (N, 40), idx (N,), rows)], launches) of one loss_and_grad
+    through mxu replay at the main path's shape: per bounce the gradient
+    the replay gather's backward receives (recorded by a hook on the
+    gather's output), and the row_grad launches counted over the call
+    (zeroed just before it)."""
+    from rtm_tpu_torch.ops.kernels import row_grad as rg
+
+    _, step = replay_fit_step(scene)
+    gather, got = rg.ReplayRowGather.apply, []
+
+    def record(table, idx):
+        row = gather(table, idx)
+        row.register_hook(lambda g: got.append(
+            (g.contiguous().clone(), idx.clone(), table.shape[0])))
+        return row
+
+    rg.ReplayRowGather.apply = record
+    try:
+        rg.row_grad.launches = 0
+        step()
+        launches = rg.row_grad.launches
+    finally:
+        del rg.ReplayRowGather.apply
+    return got, launches
+
+
+def replay_bwd_launches(cfg, steps: int) -> int:
+    """row_grad launches of `steps` loss_and_grad calls through mxu
+    replay: one a frame and bounce."""
+    return steps * cfg.max_frames * cfg.max_bounces
+
+
+def row_grad_bound_ms(n: int, rows: int, width: int) -> float:
+    """Each lane's gradient row and index read once and the table written
+    once, at 3.35 TB/s."""
+    return (n * (4 * width + 8) + 4 * rows * width) / 3.35e12 * 1e3
+
+
+def onehot_row_grad(g, idx, rows):
+    """A library-only deterministic form of the gather's backward: the
+    (rows, N) one-hot matrix times the (N, W) rows, one cuBLAS f32
+    product (compared with row_grad in [replay-bwd]; the port does not
+    call it)."""
+    import torch
+
+    return torch.nn.functional.one_hot(idx, rows).to(g.dtype).T @ g
+
+
+def replay_step_forms(scene, forms: dict, steps: int):
+    """({form name: host ms of each of `steps` loss_and_grad calls through
+    mxu replay at the fit's shape, a synchronise after each}, {form name:
+    whether its two turns gave the same gradients, to the bit}), with the
+    replay gather's backward taken by forms[name] (g, idx, rows) -> table
+    gradient; the forms run in turns A B B A, each after one warm
+    step."""
+    import torch
+    from rtm_tpu_torch.ops.kernels import row_grad as rg
+
+    _, step = replay_fit_step(scene)
+    own = rg.row_grad
+    ms, grads = {name: [] for name in forms}, {name: [] for name in forms}
+    names = list(forms)
+    try:
+        for name in names + names[::-1]:
+            rg.row_grad = forms[name]
+            step()
+            torch.cuda.synchronize()
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                _, g = step()
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+            grads[name].append(g.tensors())
+    finally:
+        rg.row_grad = own
+    equal = {name: all(torch.equal(a, b) for a, b in zip(*gs))
+             for name, gs in grads.items()}
+    return ms, equal
+
+
+def phase_replay_bwd(sm: Smoke, scene):
+    """The replay gather's backward at the fit cell's shape (the [main]
+    scene's 8 bounces), then at the mxu tables' limit: per call the
+    kernel's device ms (the 8 calls captured in one CUDA graph and
+    replayed) and its eager ms, the plain version's ms and
+    index_put_(accumulate=True)'s, the byte bound; bitwise checks.  At the
+    fit's shape also the one-hot product (onehot_row_grad) per call, and
+    whole loss_and_grad steps with it against the kernel.  Returns (kernel
+    ms, plain ms, library ms, bound ms, max abs error against the plain
+    version) per call at the fit's shape, and the row_grad launches of one
+    loss_and_grad there."""
+    import numpy as np
+    import torch
+    from rtm_tpu_torch.ops.kernels.row_grad import (row_grad, row_grad_plain,
+                                                    row_grad_plan)
+
+    def library(g, idx, rows):
+        return torch.zeros((rows, g.shape[1]), device=g.device).index_put_(
+            (idx,), g, accumulate=True)
+
+    def graph_ms(calls):
+        """Device ms per call: the calls captured in one CUDA graph,
+        replayed REPLAY_BWD_REPS times (the wrapper's host work left out)."""
+        for c in calls:
+            row_grad(*c)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for c in calls:
+                row_grad(*c)
+        return cuda_ms(graph.replay, REPLAY_BWD_REPS) / len(calls)
+
+    def measure(tag, cases):
+        before = row_grad.launches
+        same = all(torch.equal(row_grad(*c), row_grad(*c)) for c in cases)
+        err = max(float((row_grad(*c) - row_grad_plain(*c)).abs().max())
+                  for c in cases)
+        launches = row_grad.launches - before
+        calls = cases * (MAIN_BOUNCES // len(cases))
+        k_ms = [graph_ms(calls), graph_ms(calls)]
+        e_ms = cuda_ms(lambda: [row_grad(*c) for c in calls],
+                       REPLAY_BWD_REPS // 4) / len(calls)
+        l_ms = [cuda_ms(lambda c=c: library(*c), REPLAY_BWD_REPS // 8)
+                for c in cases]
+        p_ms = cuda_ms(lambda: row_grad_plain(*cases[0]), 1)
+        g, _, rows = cases[0]
+        n, width = g.shape
+        b_ms = row_grad_bound_ms(n, rows, width)
+        # the one-hot matrix takes rows * n * 12 B (int64, then f32): only
+        # at the fit's few rows
+        onehot = "not measured (the one-hot matrix would not fit)"
+        if rows * n * 12 <= 1 << 30:
+            o_ms = cuda_ms(lambda: [onehot_row_grad(*c) for c in calls],
+                           REPLAY_BWD_REPS // 4) / len(calls)
+            o_same = all(torch.equal(onehot_row_grad(*c),
+                                     onehot_row_grad(*c)) for c in cases)
+            o_gap = max(float((row_grad(*c) - onehot_row_grad(*c)).abs().max()
+                              / library(*c).abs().max().clamp(min=1e-30))
+                        for c in cases)
+            onehot = (f"{o_ms:.4f} ms/call, bitwise run to run={o_same}, "
+                      f"largest gap to the kernel over the largest entry "
+                      f"{o_gap:.3e}")
+        gap = max(float((row_grad(*c) - library(*c)).abs().max()
+                        / library(*c).abs().max().clamp(min=1e-30))
+                  for c in cases)
+        print(f"[replay-bwd] {tag}: n={n} rows={rows} width={width} plan "
+              f"(tile_rows, chunks, lanes/chunk)="
+              f"{row_grad_plan(n, rows, width)}: kernel device ms/call "
+              f"(graph replay of {len(calls)} calls) {k_ms[0]:.4f} / "
+              f"{k_ms[1]:.4f}, eager ms/call (CUDA events, with the "
+              f"wrapper's host work) {e_ms:.4f}; bound_ms={b_ms:.5f} "
+              f"(bytes: {(n * (4 * width + 8)) / 1e6:.1f} MB at 3.35 TB/s, "
+              f"{100.0 * b_ms / min(k_ms):.1f}%); plain_ms={p_ms:.3f}; "
+              f"one-hot product (cuBLAS f32) {onehot}; "
+              f"library_ms (index_put_ accumulate)={np.mean(l_ms):.4f} "
+              "(per case " + ",".join(f"{v:.3f}" for v in l_ms)
+              + f"); launches={launches} of {3 * len(cases)} calls; "
+              f"bitwise run to run={same}; max_abs_err against the plain "
+              f"version={err:.3e}; largest gap to the library's sum over "
+              f"its largest entry {gap:.3e}", flush=True)
+        sm.check(same and err == 0.0, f"replay-bwd {tag}: kernel not "
+                 "bitwise its plain version or itself")
+        sm.check(launches == 3 * len(cases),
+                 f"replay-bwd {tag}: {launches} launches")
+        return min(k_ms), p_ms, float(np.mean(l_ms)), b_ms, err
+
+    cases, main_launches = replay_bwd_inputs(scene)
+    want = replay_bwd_launches(replay_fit_step(scene)[0], 1)
+    sm.check(len(cases) == MAIN_BOUNCES,
+             f"replay-bwd: {len(cases)} gathers recorded, not {MAIN_BOUNCES}")
+    sm.check(main_launches == want, f"replay-bwd: one loss_and_grad "
+             f"launched row_grad {main_launches} times, not {want}")
+    hits = [int(torch.unique(c[1]).numel()) for c in cases]
+    print(f"[replay-bwd] scene3 {MAIN_RES}x{MAIN_RES} {MAIN_BOUNCES} "
+          f"bounces: rows hit per bounce {hits} of {cases[0][2]}; one "
+          f"loss_and_grad launched row_grad {main_launches} times "
+          f"(max_frames x max_bounces = {want})", flush=True)
+    fit = measure("fit shape, scene3's bounces", cases) + (main_launches,)
+    del cases
+    steps, equal = replay_step_forms(
+        scene, {"row_grad": row_grad, "onehot": onehot_row_grad},
+        REPLAY_STEP_STEPS)
+    print(f"[replay-bwd] loss_and_grad at the fit's shape, host ms a step "
+          f"(synchronised; turns A B B A, {REPLAY_STEP_STEPS} steps a "
+          f"turn): " + "; ".join(
+              f"{name} median {np.median(v):.2f} ("
+              + ",".join(f"{x:.2f}" for x in v) + ")"
+              for name, v in steps.items())
+          + f"; gradients bitwise equal across turns {equal}", flush=True)
+    sm.check(equal["row_grad"], "replay-bwd: the kernel's steps gave "
+             "other gradients in their two turns")
+    rng = np.random.default_rng(0)
+    n, rows = MAIN_RES * MAIN_RES, 2176
+    idx = np.where(rng.random(n) < 0.8, rng.integers(0, 6, n),
+                   rng.integers(0, rows, n))
+    big = [(torch.from_numpy(rng.standard_normal((n, 40)).astype(np.float32))
+            .to(scene.device),
+            torch.from_numpy(idx.astype(np.int64)).to(scene.device), rows)]
+    measure("mxu limit, drawn indices", big)
+    return fit
+
+
 def phase_bench_grad(sm: Smoke):
     """bench/grad.py at 512x512, 8 bounces through mxu (record replay) and
-    wavefront2 (8 bands, remat): the three rows each, finite losses, and
-    only the route's kernel launched."""
+    wavefront2 (8 bands, remat): the three rows each, finite losses, only
+    the route's tracing kernel launched, and row_grad once a bounce of each
+    fwd_bwd call through mxu and never through wavefront2."""
     import math
 
     from rtm_tpu_torch.bench import grad
 
+    # fwd_bwd's calls: one untimed, then grad.REPS timed (timed_calls)
+    steps = 1 + grad.REPS
     for backend, kernel in (("mxu", "mxu"), ("wavefront2", "wavefront2")):
         rows, launches = driver_rows(
             sm, "bench-grad", grad.main, [str(MAIN_RES), str(MAIN_BOUNCES)],
@@ -2293,9 +2553,13 @@ def phase_bench_grad(sm: Smoke):
         sm.check(len(rows) == 3 and all(math.isfinite(r.get("loss", 0.0))
                                         for r in rows),
                  f"bench-grad {backend} rows {rows}")
+        backward = launches.pop("row_grad")
+        want = steps * MAIN_BOUNCES if backend == "mxu" else 0
         sm.check(launches[kernel] > 0
                  and sum(launches.values()) == launches[kernel],
                  f"bench-grad {backend} launches {launches}")
+        sm.check(backward == want, f"bench-grad {backend}: {backward} "
+                 f"row_grad launches, not {want}")
 
 
 def phase_bench_bigscene(sm: Smoke):
@@ -2321,6 +2585,8 @@ def phase_bench_bigscene(sm: Smoke):
 HOST_WAIT_WARM, HOST_WAIT_TIMED = 5, 10
 HOST_WAIT_OPEN = 2
 POSTPASS_FRAMES, POSTPASS_REPLAYS = 10, 20
+REPLAY_BWD_REPS = 20
+REPLAY_STEP_STEPS = 6
 
 
 def main_cfg():
@@ -3011,6 +3277,9 @@ def main() -> int:
         phase_grad(sm, scene, img)
     with sm.phase("inverse"):
         phase_inverse(sm, scene)
+    with sm.phase("replay-bwd"):
+        (rg_ms, rg_plain_ms, rg_lib_ms, rg_bound_ms, rg_err,
+         rg_launches) = phase_replay_bwd(sm, scene)
     with sm.phase("soft"):
         phase_soft(sm, scene, img)
 
@@ -3141,6 +3410,18 @@ def main() -> int:
         "bound_ms": mb_ms,
         "bound_by": mb_by,
         "library_ms": None,
+    }, {
+        "name": "row_grad",
+        "route": "cuda",
+        "source": "rtm_tpu_torch/csrc/row_grad.cu",
+        "replaces": None,
+        "launches": rg_launches,
+        "max_abs_err": rg_err,
+        "ms": rg_ms,
+        "plain_ms": rg_plain_ms,
+        "bound_ms": rg_bound_ms,
+        "bound_by": "bytes",
+        "library_ms": rg_lib_ms,
     }]}
     print(f"[total] run_s={time.perf_counter() - run_t0:.2f}", flush=True)
     print(json.dumps(record), flush=True)

@@ -29,7 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # every csrc/<name>.cu kernel library of the package
 KERNELS = ("mxu_trace", "trav_trace", "cluster_sweep", "intersect_sweep",
-           "mega_trace", "postpass")
+           "mega_trace", "postpass", "row_grad")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

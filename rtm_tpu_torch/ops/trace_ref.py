@@ -216,6 +216,7 @@ def replay_payload(scene, rp_table, origin, direction, hr):
     record `hr` instead of a sweep: topology detached, values recomputed
     differentiably.  Returns (payload dict, mat_attrs dict)."""
     from .kernels.mxu_kernel import HR_IDX, HR_SPH, HR_TRI
+    from .kernels.row_grad import ReplayRowGather
     t_cnt = scene.num_triangles
     s_cnt = scene.num_spheres
     is_tri = (hr & HR_TRI) != 0
@@ -225,7 +226,7 @@ def replay_payload(scene, rp_table, origin, direction, hr):
     uidx = torch.where(is_tri, idx,
                        torch.where(is_sph, t_cnt + idx, t_cnt + s_cnt))
     uidx = torch.clamp(uidx, 0, t_cnt + s_cnt).long()  # defensive
-    row = rp_table[uidx]                                         # (N,40)
+    row = ReplayRowGather.apply(rp_table, uidx)                  # (N,40)
 
     # triangle t: plane recovery from the gathered verts (shader:274-276)
     a = row[:, 0:3]

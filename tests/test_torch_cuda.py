@@ -21,7 +21,10 @@ absolute (the transcendentals are the only operations that may differ in
 the last place).  The post-pass kernel (csrc/postpass.cu) repeats the
 dense post-pass's operations in order and is bitwise the plain version run
 by PyTorch on the card, but for the procedural sun: there the plain
-version's dot product goes to cuBLAS (rtol 2e-4, below).
+version's dot product goes to cuBLAS (rtol 2e-4, below).  The replay
+gather's backward (csrc/row_grad.cu) has only additions, in the plain
+version's order, so it is bitwise that version and bitwise itself from run
+to run.
 """
 from __future__ import annotations
 
@@ -802,9 +805,9 @@ def _grad_rig(device):
 
 def test_mxu_grad_on_the_card_matches_the_cpu(cuda):
     """loss_and_grad(backend="mxu") on the card (the mxu kernel's records,
-    the replay's gather backward as atomic adds) against the same scene on
-    the CPU (the plain version): every gradient finite, within rtol 1e-3 /
-    atol 1e-5 (rtm_tpu's grad tolerance, tests/test_grad.py)."""
+    the replay's gather backward by csrc/row_grad.cu) against the same
+    scene on the CPU (the plain versions): every gradient finite, within
+    rtol 1e-3 / atol 1e-5 (rtm_tpu's grad tolerance, tests/test_grad.py)."""
     from rtm_tpu_torch.diff import extract_params, loss_and_grad
 
     w, h = 24, 20
@@ -1164,3 +1167,83 @@ def test_postpass_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                  (color.half(), miss, rec)):
         with pytest.raises(ValueError, match="mega_postpass"):
             mk.mega_postpass(*args, st, cfg, n)
+
+
+# ---------------------------------------------------------------------------
+# The replay gather's backward (csrc/row_grad.cu) against row_grad_plain run
+# by PyTorch on the card
+# ---------------------------------------------------------------------------
+
+# name: (lanes, rows): the fit cell's 512x512 lanes over its 35 rows (34
+# triangles and the miss row); the
+# mxu tables' limit (2,047 triangles, 128 spheres, the miss row: 2,176 rows,
+# several row tiles); a tail chunk shorter than the rest
+ROW_GRAD_SHAPES = {
+    "fit_35": (512 * 512, 35),
+    "mxu_limit_2176": (512 * 512, 2176),
+    "tail_41": (5003, 41),
+}
+
+
+def _row_grad_inputs(n, rows, device, seed=0):
+    """(grad (n, 40) f32, idx (n,) i64): most lanes on a few rows, as a
+    bounce's hits fall, the rest spread over the table."""
+    rng = np.random.default_rng(seed)
+    idx = np.where(rng.random(n) < 0.8, rng.integers(0, min(rows, 6), n),
+                   rng.integers(0, rows, n))
+    g = rng.standard_normal((n, 40)).astype(np.float32)
+    return (torch.from_numpy(g).to(device),
+            torch.from_numpy(idx.astype(np.int64)).to(device))
+
+
+@pytest.mark.parametrize("shape", list(ROW_GRAD_SHAPES))
+def test_row_grad_kernel_matches_plain(cuda, shape):
+    """Bitwise the plain version, and bitwise itself over two runs."""
+    from rtm_tpu_torch.ops.kernels import row_grad as rg
+
+    n, rows = ROW_GRAD_SHAPES[shape]
+    g, idx = _row_grad_inputs(n, rows, cuda)
+    before = rg.row_grad.launches
+    got = rg.row_grad(g, idx, rows)
+    again = rg.row_grad(g, idx, rows)
+    assert rg.row_grad.launches == before + 2
+    want = rg.row_grad_plain(g, idx, rows)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, 40) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=0.0, atol=0.0)
+
+
+def test_row_grad_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from rtm_tpu_torch.ops.kernels import row_grad as rg
+
+    g, idx = _row_grad_inputs(100, 41, cuda)
+    for args in ((g.double(), idx, 41),                  # dtype
+                 (g.T.contiguous().T, idx, 41),          # strided rows
+                 (g, idx, 0), (g, idx, rg.MAX_ROWS + 1),  # rows
+                 (g, idx.cpu(), 41), (g.cpu(), idx, 41),  # devices
+                 (g, idx.int(), 41)):
+        with pytest.raises(ValueError, match="row_grad"):
+            rg.row_grad(*args)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["keep", "remat"])
+def test_replay_backward_runs_the_row_grad_kernel(cuda, remat):
+    """One mxu replay backward launches csrc/row_grad.cu once per frame
+    and bounce (recomputing each bounce in the backward launches no more)."""
+    from rtm_tpu_torch.diff import extract_params, loss_and_grad
+    from rtm_tpu_torch.ops.kernels import row_grad as rg
+
+    w, h = 24, 20
+    cfg = rtm_tpu_torch.RenderConfig(width=w, height=h, max_bounces=3,
+                                     max_frames=2, draw_environment=True)
+    st = _grad_rig(cuda)
+    before = rg.row_grad.launches
+    _, g = loss_and_grad(extract_params(st), st,
+                         rtm_tpu_torch.Camera().spec(w, h),
+                         torch.zeros((h, w, 3), device=cuda), 1, cfg,
+                         backend="mxu", remat=remat)
+    torch.cuda.synchronize()
+    assert rg.row_grad.launches == before + cfg.max_frames * cfg.max_bounces
+    assert bool(torch.isfinite(g.albedo).all())
+    assert float(g.albedo.abs().max()) > 0.0
